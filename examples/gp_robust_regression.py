@@ -8,7 +8,7 @@ outliers that silently wreck the Gaussian-likelihood (conjugate) GP fit.
 The posterior is p(f | y) ∝ N(f; 0, K) * Π_i t_ν(y_i − f_i), exactly the
 shape ``EllipticalSliceSampler`` is built for: the GP prior enters through
 the ellipse construction (one batched ``[C, D] @ [D, D]`` Cholesky matmul
-per step — MXU work on TPU), the Student-t likelihood through the accept
+per step), the Student-t likelihood through the accept
 test, and there is nothing to tune.
 
 The comparison: the analytic Gaussian-likelihood GP posterior mean gets

@@ -2,9 +2,9 @@
 
 Beyond the reference's synthetic targets: the log posterior of logistic
 regression over a design matrix is a single ``[C, D] @ [D, N]`` matmul per
-evaluation, which XLA tiles onto the MXU — the shape of real production
-MCMC workloads on TPU. Demonstrates a custom ``Target`` with a fused
-batched form and analytic gradient.
+evaluation, which XLA hands to the matmul units — the shape of real
+production MCMC workloads on an accelerator. Demonstrates a custom
+``Target`` with a fused batched form and analytic gradient.
 """
 
 import jax

@@ -5,8 +5,9 @@ sampling scan compiles to ZERO cross-device collectives — each chip
 advances its chain shard independently, so throughput scales linearly
 (pinned by tests/test_parallel.py::test_sampling_scan_compiles_to_zero_
 collectives) — while the R-hat/ESS diagnostics reduce across the mesh
-transparently. On a TPU pod slice this is the same code; under the test
-suite it runs on the 8-virtual-device CPU mesh (tests/conftest.py), the
+transparently. On a multi-GPU host this is the same code (``python
+chip_smoke.py --multi`` runs it over four cards); under the test suite it
+runs on the 8-virtual-device CPU mesh (tests/conftest.py), the
 lockstep analog of the reference's Rayon thread fan-out
 (/root/reference/src/core.rs:178-182).
 """

@@ -1,6 +1,6 @@
-"""mini-mcmc-tpu: a TPU-native MCMC framework.
+"""mini-mcmc-tpu: a batched-chain MCMC framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
+A from-scratch JAX/XLA rebuild of the capability surface of
 ``mini-mcmc`` (Rust, reference at /root/reference): Metropolis-Hastings,
 Hamiltonian Monte Carlo, the No-U-Turn Sampler and Gibbs sampling over
 thousands of lockstep parallel chains — plus beyond-reference
@@ -19,8 +19,8 @@ sample cube.
 Design: targets and proposals are pure log-density functions; samplers are
 ``(init, step)`` kernels over batched ``[n_chains, D]`` state pytrees;
 runners are ``lax.scan`` loops compiled once by XLA; chains shard over a
-``jax.sharding.Mesh`` axis for multi-chip scaling, with diagnostics reduced
-by XLA collectives over ICI.
+``jax.sharding.Mesh`` axis for multi-device scaling, with diagnostics reduced
+by XLA collectives.
 """
 
 from . import io, models, ops, parallel, stats, utils

@@ -45,9 +45,9 @@ def _rank_normalize_pm(flat_pm: jax.Array) -> jax.Array:
     float draws), then the Blom-offset normal quantile
     ``z = Phi^-1((r + 1 - 3/8) / (S + 1/4))`` (Vehtari et al. 2021, eq. 14).
 
-    Layout: parameters-major, draws on the MINOR axis — on TPU a tiny
-    minor dim gets lane-padded to 128 (a 42x memory blowup for P=3 cubes),
-    so all big sorts here run along the well-tiled draws axis.
+    Layout: parameters-major, draws on the MINOR axis, so all big sorts
+    here run along the long contiguous draws axis rather than a tiny
+    minor parameter axis.
     """
     s = flat_pm.shape[1]
     order = jnp.argsort(flat_pm, axis=1)
@@ -109,8 +109,8 @@ def _diagnostics_impl(sample: jax.Array):
 
     One compiled program: XLA fuses the transposes/slices and frees
     intermediates, where eager op-by-op dispatch materialized every
-    temporary (and, on TPU, lane-padded the P-minor ones 42x — the
-    flagship-scale OOM this layout exists to avoid).
+    temporary (the flagship-scale peak memory this layout exists to
+    avoid).
     """
     c, n, p = sample.shape
     pm = jnp.transpose(sample, (2, 0, 1)).reshape(p, c * n)  # [P, S]

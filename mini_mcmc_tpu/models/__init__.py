@@ -8,7 +8,6 @@ from .base import (
     derive_grad_dc,
     derive_logp_dc,
     validate_dc_forms,
-    validate_separable,
 )
 from .discrete import (
     Categorical,
@@ -60,7 +59,6 @@ __all__ = [
     "derive_grad_dc",
     "derive_logp_dc",
     "validate_dc_forms",
-    "validate_separable",
     "estimate_preconditioner",
     "precondition_target",
     "binomial_target",

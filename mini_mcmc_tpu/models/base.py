@@ -1,6 +1,6 @@
 """Target / proposal / conditional abstractions as pure functions.
 
-TPU-native redesign of the reference's trait surface
+Batched redesign of the reference's trait surface
 (``/root/reference/src/distributions.rs:65-134,485-487``):
 
 - ``Target<T,F>::unnorm_logp(&[T]) -> F``          -> ``Target.logp`` (pure fn)
@@ -45,20 +45,12 @@ class Target:
     logp_batch: Optional[Callable] = None
     grad: Optional[Callable] = None
     logp_normalized: Optional[Callable] = None
-    #: optional chains-on-lanes forms for Pallas kernels: ``[D, C] -> [C]``
-    #: log density and ``[D, C] -> [D, C]`` gradient (jnp ops only).
+    #: optional chains-on-lanes (chains-minor) forms: ``[D, C] -> [C]``
+    #: log density and ``[D, C] -> [D, C]`` gradient (elementwise jnp ops
+    #: over the lane axes only). Parallel tempering evaluates its
+    #: ``[T, D, C]`` replica batch through ``logp_dc`` when present.
     logp_dc: Optional[Callable] = None
     grad_dc: Optional[Callable] = None
-    #: optional coordinate-sliced form for the separable fused HMC tier
-    #: (``ops/pallas/hmc_bigd.py``): ``(tile_logp, tables)`` where each
-    #: table is a ``[D]`` array of per-coordinate parameters and
-    #: ``tile_logp(x [C', d'], *tables each [1, d']) -> [C']`` evaluates
-    #: the density contribution of that coordinate slice — partial sums
-    #: over a coordinate partition must reconstruct the full density
-    #: (checked by :func:`validate_separable`). Lets heterogeneous
-    #: separable densities (per-coordinate scales, transform masks) ride
-    #: the tier; ``None`` defaults to the slice-agnostic batch form.
-    sep_form: Optional[tuple] = None
 
     def batch_logp(self, positions: jax.Array) -> jax.Array:
         """Log density for a ``[C, D]`` batch of positions -> ``[C]``."""
@@ -95,27 +87,24 @@ class Target:
         return jax.value_and_grad(self.logp)(position)
 
     def dc_forms(self):
-        """``(logp_dc, grad_dc)`` for the fused Pallas kernels.
+        """``(logp_dc, grad_dc)``, the chains-on-lanes forms.
 
         Every missing form is derived, so a plain ``Target(logp=...)``
-        reaches the fused tiers with zero extra code (the reference's own
-        contract: ONE density definition feeds everything,
+        has both with zero extra code (the reference's own contract: ONE
+        density definition feeds everything,
         /root/reference/src/distributions.rs:78-88):
 
         - no ``logp_dc``: derived from the batch form with
-          :func:`derive_logp_dc` (an in-kernel transpose of the lanes
-          layout — works wherever the batch form's ops Mosaic-lower; a
-          hand-written chains-on-lanes form remains the fast path and the
-          fallback when the compiler rejects the transpose).
+          :func:`derive_logp_dc` (a transpose of the lanes layout; a
+          hand-written chains-on-lanes form avoids the transpose).
         - no ``grad_dc``: derived from ``logp_dc`` with
           :func:`derive_grad_dc` (reverse-mode AD); a hand-written
           ``grad_dc`` remains an optional override (it can be cheaper
           when value and gradient share subexpressions).
 
-        Hand-written forms are checked against the batch forms at sampler
-        construction (:func:`validate_dc_forms`) so a transposed
-        covariance or dropped term raises instead of silently sampling
-        the wrong posterior through every ``use_pallas`` path.
+        Hand-written forms can be checked against the batch forms with
+        :func:`validate_dc_forms`, so a transposed covariance or dropped
+        term raises instead of silently giving a different density.
         """
         logp_dc = self.logp_dc
         if logp_dc is None:
@@ -124,56 +113,12 @@ class Target:
             return logp_dc, self.grad_dc
         return logp_dc, derive_grad_dc(logp_dc)
 
-    def sep_forms(self):
-        """``(tile_logp, tables)`` for the separable fused HMC tier.
-
-        ``tile_logp(x [C', d'], *tables each [1, d']) -> [C']`` is the
-        density contribution of a coordinate slice; ``tables`` are
-        ``[D]`` per-coordinate parameter arrays whose matching slices the
-        kernel's grid mapping delivers per tile. Defaults to the batch
-        form with no tables — valid only for slice-agnostic
-        (iid-coordinate) densities; :func:`validate_separable` checks the
-        partition-sum contract at sampler construction either way. The
-        diag-metric and coordinate-transform wrappers
-        (``models/precondition.py``, ``models/transforms.py``) attach
-        composed ``sep_form``s so preconditioned/constrained targets
-        reach the tier.
-
-        Tables come back normalized to ``[1, D]`` (the layout the kernel
-        tiles and the validator slices) — the ONE place the contract is
-        enforced; user ``sep_form`` tables may be ``[D]`` or ``[1, D]``.
-        """
-        if self.sep_form is not None:
-            fn, tables = self.sep_form
-            return fn, tuple(_norm_sep_table(t) for t in tables)
-        return (lambda x, _f=self.batch_logp: _f(x)), ()
-
-
-def _norm_sep_table(t) -> jax.Array:
-    """Normalize a ``sep_form`` coordinate table to the ``[1, D]`` layout
-    the separable kernel tiles; reject anything that is not ``[D]`` or
-    ``[1, D]`` by its ACTUAL shape (a silently flattened ``[2, D/2]``
-    would pass a size check and corrupt the per-tile slicing)."""
-    arr = jnp.asarray(t)
-    if arr.ndim == 1:
-        return arr.reshape(1, -1)
-    if arr.ndim == 2 and arr.shape[0] == 1:
-        return arr
-    raise ValueError(
-        "sep_form coordinate tables must be [D] or [1, D] arrays; got "
-        f"shape {arr.shape}"
-    )
-
 
 def derive_logp_dc(batch_logp: Callable) -> Callable:
     """A chains-on-lanes ``[D, ...] -> [...]`` log density derived from a
-    ``[C, D] -> [C]`` batch form by transposing the lanes layout.
-
-    Inside a Pallas kernel body the moveaxis/reshape lower through Mosaic's
-    relayout path; if compilation of a fused kernel fails with a Mosaic
-    transpose/layout error, supply a hand-written ``Target.logp_dc``
-    (elementwise over the leading D axis) instead — it is also faster, as
-    it avoids the in-kernel relayout entirely.
+    ``[C, D] -> [C]`` batch form by transposing the lanes layout. A
+    hand-written ``Target.logp_dc`` (elementwise over the leading D axis)
+    avoids the transpose.
     """
 
     def logp_dc(p):
@@ -192,15 +137,14 @@ def derive_grad_dc(logp_dc: Callable) -> Callable:
     Lanes are independent chains, so the VJP of ``logp_dc`` with a ones
     cotangent IS the per-lane gradient (the sum trick). Because a valid
     ``logp_dc`` uses only elementwise/broadcast jnp ops, its transpose is
-    also elementwise — the derived gradient traces into Pallas kernel
-    bodies exactly like a hand-written one.
+    also elementwise, like a hand-written one.
 
     CONTRACT: ``logp_dc`` must treat lanes independently (no reductions
     over the lane axes — only over the leading D axis). A cross-lane
     reduction makes the ones-cotangent VJP sum contributions across
     chains, silently corrupting every gradient; sampler construction
-    catches this by checking the derived gradient against the batch AD
-    gradient (:func:`validate_dc_forms`).
+    :func:`validate_dc_forms` catches this by checking the derived gradient
+    against the batch AD gradient.
     """
 
     def grad_dc(p):
@@ -216,38 +160,27 @@ def validate_dc_forms(target: "Target", positions, *, rtol: float = 3e-4,
                       need_grad: bool = True) -> None:
     """Check hand-written chains-on-lanes forms against the batch forms.
 
-    The fused Pallas tiers evaluate the target ONLY through
-    ``logp_dc``/``grad_dc``; a hand-written form that disagrees with
-    ``logp`` (transposed covariance, dropped term, wrong sign) would
-    silently sample the wrong posterior through every ``use_pallas`` path.
-    This runs once at sampler construction on (up to ``max_rows`` of) the
-    actual initial positions in the ``[D, C]`` lanes layout and raises
-    ``ValueError`` on mismatch. A ``Target`` with NEITHER hand-written
-    form validates trivially (both derive from the batch form); a
-    hand-written ``grad_dc`` is checked even when ``logp_dc`` is absent
-    (``dc_forms()`` still hands it to the fused kernels); the DERIVED
-    gradient of a hand-written ``logp_dc`` is also checked (it is
-    silently wrong when ``logp_dc`` reduces across lanes — see
-    :func:`derive_grad_dc`).
+    A hand-written ``logp_dc``/``grad_dc`` that disagrees with ``logp``
+    (transposed covariance, dropped term, wrong sign) gives a different
+    density from the batch form. This runs once, eagerly, on (up to
+    ``max_rows`` of) the given positions in the ``[D, C]`` lanes layout
+    and raises ``ValueError`` on mismatch. A ``Target`` with NEITHER
+    hand-written form validates trivially (both derive from the batch
+    form); a hand-written ``grad_dc`` is checked even when ``logp_dc`` is
+    absent; the DERIVED gradient of a hand-written ``logp_dc`` is also
+    checked (it is silently wrong when ``logp_dc`` reduces across lanes —
+    see :func:`derive_grad_dc`).
 
-    ``need_grad``: gradient-free fused kernels (MH, parallel tempering)
-    pass ``False`` — they consume only ``logp_dc`` VALUES, so the
-    derived-gradient probe is skipped for them: a value-correct
-    ``logp_dc`` whose internals couple lanes (making only the DERIVED
-    gradient wrong) stays usable with those kernels. A hand-written
-    ``grad_dc`` is still checked regardless — if the user wrote one, it
-    should be right.
+    ``need_grad=False`` skips the derived-gradient probe for consumers
+    that read only ``logp_dc`` VALUES (random-walk moves, swap ratios): a
+    value-correct ``logp_dc`` whose internals couple lanes stays usable
+    there. A hand-written ``grad_dc`` is still checked regardless.
 
-    Opt out with the samplers' ``validate_dc=False`` (exotic targets whose
-    logp is non-finite at the initial positions, or when construction-time
-    eager evaluation is undesirable).
-
-    The probe runs on the CPU backend when one is available: on TPU the
-    two forms take different compute paths (hand-written dc forms are
-    unrolled scalar ops; batch forms ride the MXU, whose float32 matmul
-    noise is ~1e-3 relative) and would need tolerances loose enough to
-    mask real dropped-term bugs. CPU evaluation is a handful of tiny
-    batches — construction-time cost is negligible either way.
+    The probe runs on the CPU backend: on an accelerator the two forms
+    take different compute paths (hand-written dc forms are unrolled
+    scalar ops; batch forms may run float32 matmuls at reduced precision)
+    and would need tolerances loose enough to mask real dropped-term
+    bugs. CPU evaluation is a handful of tiny batches.
     """
     import numpy as np
 
@@ -259,10 +192,8 @@ def validate_dc_forms(target: "Target", positions, *, rtol: float = 3e-4,
 
 
 def _cpu_probe_ctx():
-    """CPU-backend context for the construction-time validation probes
-    (see :func:`validate_dc_forms`'s rationale: on TPU the forms take
-    different compute paths whose float noise would force tolerances
-    loose enough to mask real bugs)."""
+    """CPU-backend context for the validation probe (see
+    :func:`validate_dc_forms`'s rationale)."""
     import contextlib
 
     try:
@@ -275,7 +206,7 @@ def _host_probe_rows(positions, max_rows, np):
     """First ``max_rows`` of ``positions`` as a fresh host-backed array.
 
     The round-trip through host matters: committed device arrays would
-    otherwise pin the probe back onto their own (TPU) device despite
+    otherwise pin the probe back onto their own accelerator despite
     ``jax.default_device``.
     """
     x = jnp.asarray(np.asarray(positions)[:max_rows])
@@ -300,10 +231,8 @@ def _validate_dc_forms_impl(target, positions, np, rtol, atol, max_rows,
             f"Target.logp/logp_batch on the initial positions: max abs "
             f"err {np.nanmax(err):.3g} (flat index {worst}: "
             f"{form}={got.reshape(-1)[worst]:.6g} vs "
-            f"batch={want.reshape(-1)[worst]:.6g}). The fused Pallas "
-            "kernels would sample the WRONG posterior. Fix the "
-            "chains-on-lanes form (or pass validate_dc=False to skip "
-            "this check)."
+            f"batch={want.reshape(-1)[worst]:.6g}). Fix the "
+            "chains-on-lanes form."
         )
 
     def _mismatch(want, got):
@@ -345,97 +274,6 @@ def _validate_dc_forms_impl(target, positions, np, rtol, atol, max_rows,
             _fail(form, want_g, got_g)
 
 
-def validate_separable(target: "Target", positions, *, rtol: float = 3e-4,
-                       atol: float = 1e-4, max_rows: int = 64) -> None:
-    """Check that the target's density is coordinate-separable.
-
-    The large-D fused HMC tier (``HMC(use_pallas="separable")``,
-    ``ops/pallas/hmc_bigd.py``) evaluates the target's
-    :meth:`Target.sep_forms` tile density independently on coordinate
-    TILES and sums the partials — only the true density when
-    ``logp(x) = sum_d f_d(x_d)`` exactly, including constants (a
-    normalization constant not attached to per-coordinate terms breaks
-    the partial-sum reconstruction). This probes additivity on (up to
-    ``max_rows`` of) the actual initial positions: the full-D
-    ``batch_logp`` must equal the tile form summed over three coordinate
-    chunks (each chunk receiving its slice of the coordinate tables,
-    exactly as the kernel's grid mapping delivers them). A correlated
-    target (off-diagonal covariance, Rosenbrock coupling) raises
-    ``ValueError`` instead of silently sampling a product approximation.
-
-    Runs eagerly on the CPU backend (same rationale as
-    :func:`validate_dc_forms`); opt out with ``validate_dc=False``.
-    """
-    import numpy as np
-
-    _MSG = (
-        "The separable fused HMC tier (use_pallas='separable') evaluates "
-        "the density independently per coordinate tile and would sample "
-        "a WRONG (product-approximation) posterior. Use "
-        "use_pallas=True/'full' (small D) or the XLA path, or pass "
-        "validate_dc=False if the density really is separable (e.g. it "
-        "is non-additive only through float noise, or its batch form "
-        "merely rejects narrowed slices)."
-    )
-    with _cpu_probe_ctx():
-        c_full = getattr(positions, "shape", (0,))[0]
-        x = _host_probe_rows(positions, max_rows, np)
-        d = x.shape[1]
-        if d < 2:
-            return  # one coordinate is trivially separable
-        tile_logp, tables = target.sep_forms()  # tables arrive [1, D]
-        for t in tables:
-            if t.shape[1] != d:
-                raise ValueError(
-                    f"sep_form coordinate tables must cover all D={d} "
-                    f"coordinates; got a [1, {t.shape[1]}] table"
-                )
-        # Two partitions are checked: the documented contract (three
-        # arbitrary chunks — separability should not depend on where the
-        # cuts land) AND the kernel's ACTUAL tile boundaries (necessary
-        # for correctness: a density with coupling confined inside one
-        # contract chunk but CROSSING a kernel tile boundary would pass
-        # the three-chunk check alone and then sample the wrong
-        # posterior through the tiles — pinned in tests/test_pallas.py).
-        from ..ops.pallas.hmc_bigd import pick_tile
-
-        _, bd = pick_tile(int(c_full), d, None, None)
-        cut_sets = [sorted({d // 3, 2 * d // 3, d} - {0})]
-        if bd < d:
-            cut_sets.append(list(range(bd, d + 1, bd)))
-        want = np.asarray(target.batch_logp(x), np.float64)
-        for cuts in cut_sets:
-            got = np.zeros_like(want)
-            lo = 0
-            for hi in cuts:
-                try:
-                    part = tile_logp(x[:, lo:hi],
-                                     *(t[:, lo:hi] for t in tables))
-                except Exception as e:
-                    # fixed-D linear algebra (solve/cholesky against a
-                    # [D, D] covariance) rejects the narrowed slice
-                    # outright — name the real problem instead of
-                    # leaking the shape error
-                    raise ValueError(
-                        "target is not coordinate-separable: the tile "
-                        f"density failed on a [{x.shape[0]}, {hi - lo}] "
-                        f"coordinate slice ({type(e).__name__}: {e}). "
-                        + _MSG
-                    ) from e
-                got = got + np.asarray(part, np.float64)
-                lo = hi
-            close = np.isclose(got, want, rtol=rtol,
-                               atol=atol * np.maximum(np.abs(want), 1.0))
-            if not np.all(close | (np.isneginf(want) & np.isneginf(got))):
-                err = np.abs(got - want)
-                raise ValueError(
-                    "target is not coordinate-separable: logp over "
-                    f"coordinate chunks (cuts at {cuts[:4]}...) does not "
-                    "sum to the full logp (max abs err "
-                    f"{np.nanmax(err):.3g}). " + _MSG
-                )
-
-
 @dataclasses.dataclass(frozen=True)
 class Proposal:
     """A proposal kernel q(x' | x) with explicit PRNG keys.
@@ -444,15 +282,7 @@ class Proposal:
         sample: ``(key, current [D]) -> proposed [D]``.
         logp: ``(from [D], to [D]) -> scalar`` log q(to | from).
         sample_batch: optional ``(key, current [C, D]) -> [C, D]`` drawing
-            the whole batch from ONE key (saves the per-chain key split —
-            a 2-3x RNG-cost cut at large chain counts).
-        propose_dc: optional chains-on-lanes form for the fused Pallas MH
-            kernel: ``(rng, pos [D, ...]) -> proposed [D, ...]`` using the
-            in-kernel hardware PRNG namespace ``ops/pallas/rng`` (jnp ops
-            only).
-        symmetric: whether ``logp(a, b) == logp(b, a)`` for all a, b — the
-            fused kernel requires this (it skips the q terms of the accept
-            ratio, which cancel).
+            the whole batch from ONE key (saves the per-chain key split).
         scaled: optional ``(factor) -> Proposal`` returning this proposal
             with its length scale multiplied by ``factor`` (``factor`` may
             be a traced scalar). Enables adaptive proposal-scale tuning
@@ -464,8 +294,6 @@ class Proposal:
     sample: Callable
     logp: Callable
     sample_batch: Optional[Callable] = None
-    propose_dc: Optional[Callable] = None
-    symmetric: bool = False
     scaled: Optional[Callable] = None
 
 
@@ -482,13 +310,7 @@ class Conditional:
             drawing coordinate ``index`` for ALL chains from one key —
             skips the per-chain key splitting and runs the conditional as
             batched tensor ops.
-        sample_dc: optional chains-on-lanes form for the fused Pallas
-            Gibbs kernel: ``(rng, index, state [D, ...]) -> [...]`` drawing
-            coordinate ``index`` (a STATIC Python int — the in-kernel sweep
-            is unrolled) using the in-kernel hardware PRNG namespace
-            ``ops/pallas/rng`` (jnp ops only).
     """
 
     sample: Callable
     sample_batch: Optional[Callable] = None
-    sample_dc: Optional[Callable] = None

@@ -62,11 +62,9 @@ def poisson_target(lam) -> Target:
         lp = kf * log_lam - lam - jax.lax.lgamma(kf + 1.0)
         return jnp.where(k < 0, -jnp.inf, lp)
 
-    # Pallas coefficients must be Python floats baked at construction; a
-    # traced lam (target built under jit/vmap over hyperparameters) drops
-    # the dc form so use_pallas raises its clean requirement error instead
-    # of an opaque ConcretizationTypeError mid-kernel-trace (same guard as
-    # models/gaussian._concrete_floats).
+    # The dc form bakes its coefficients in as Python floats; a traced lam
+    # (target built under jit/vmap over hyperparameters) drops it (same
+    # guard as models/gaussian._concrete_floats).
     from .gaussian import _concrete_floats
 
     coeffs = _concrete_floats(log_lam, lam)
@@ -75,14 +73,9 @@ def poisson_target(lam) -> Target:
         log_lam_f, lam_f = coeffs
 
         def logp_dc(pos_dc):
-            # fused-Pallas form: Mosaic cannot lower lax.lgamma, so the
-            # log-factorial uses the Lanczos series (utils/mathx, ~1e-5 rel
-            # deviation from lax.lgamma — far inside the pmf tolerances).
-            from ..utils.mathx import lgamma_positive
-
             k = pos_dc[0]
             kf = k.astype(jnp.float32)
-            lp = kf * log_lam_f - lam_f - lgamma_positive(kf + 1.0)
+            lp = kf * log_lam_f - lam_f - jax.lax.lgamma(kf + 1.0)
             return jnp.where(k < 0, -jnp.inf, lp)
 
     return Target(logp=logp, logp_dc=logp_dc)
@@ -129,17 +122,4 @@ def random_walk_int_proposal(clip_low=0, clip_high=None) -> Proposal:
         del frm, to
         return jnp.log(0.5)
 
-    def propose_dc(rng, pos):
-        # hardware-PRNG sign bit = fair coin (matches bernoulli(0.5))
-        bits = rng.random_bits(pos.shape)
-        step = jnp.where(bits >= 0, jnp.ones_like(pos), -jnp.ones_like(pos))
-        new = jnp.maximum(pos + step, jnp.asarray(clip_low, pos.dtype))
-        if clip_high is not None:
-            new = jnp.minimum(new, jnp.asarray(clip_high, pos.dtype))
-        return new
-
-    # symmetric: the reference treats the walk's q as the constant 1/2 even
-    # at the reflecting boundary (metrohast_poisson_test.rs:52-105) — the
-    # same declared symmetry quirk as `logp` above.
-    return Proposal(sample=sample, logp=logp, sample_batch=sample,
-                    propose_dc=propose_dc, symmetric=True)
+    return Proposal(sample=sample, logp=logp, sample_batch=sample)

@@ -15,16 +15,25 @@ import jax.numpy as jnp
 
 from .base import Proposal, Target
 
+#: float32 matmuls in the densities run at full precision: a GPU would
+#: otherwise be free to run them in TF32 (about three decimal digits).
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _quad(diff, inv_cov):
+    """``diff @ inv_cov @ diff`` for one ``[D]`` state at full precision."""
+    return jnp.dot(jnp.dot(diff, inv_cov, precision=_HI), diff, precision=_HI)
+
 
 def _concrete_floats(*xs):
     """Python floats of ``xs``, or ``None`` when any is a JAX tracer.
 
-    The ``_dc`` (chains-on-lanes) forms feed Pallas kernels, which cannot
-    capture traced array constants — their coefficients must be baked in as
-    Python floats at construction. When a target is built with traced
-    mean/cov (e.g. inside ``jit``/``vmap`` over hyperparameters), the fused
-    kernel path is unavailable; returning ``None`` drops the ``_dc`` forms
-    so construction still succeeds and every XLA path works."""
+    The hand-written ``_dc`` (chains-on-lanes) forms bake their
+    coefficients in as Python floats at construction. When a target is
+    built with traced mean/cov (e.g. inside ``jit``/``vmap`` over
+    hyperparameters), returning ``None`` drops the hand-written forms so
+    construction still succeeds (``Target.dc_forms`` then derives them from
+    the batch form)."""
     try:
         return tuple(float(x) for x in xs)
     except (jax.errors.ConcretizationTypeError, jax.errors.TracerArrayConversionError):
@@ -47,17 +56,17 @@ def gaussian2d(mean, cov) -> Target:
 
     def unnorm_logp(x):
         diff = x - mean.astype(x.dtype)
-        return -0.5 * diff @ inv_cov.astype(x.dtype) @ diff
+        return -0.5 * _quad(diff, inv_cov.astype(x.dtype))
 
     def logp_normalized(x):
         term_1 = -jnp.log(jnp.asarray(2.0 * math.pi, x.dtype))
         term_2 = -0.5 * jnp.log(jnp.abs(det)).astype(x.dtype)
         diff = x - mean.astype(x.dtype)
-        return term_1 + term_2 - 0.5 * diff @ inv_cov.astype(x.dtype) @ diff
+        return term_1 + term_2 - 0.5 * _quad(diff, inv_cov.astype(x.dtype))
 
-    # chains-on-lanes form for the fused Pallas MH kernel: the 2x2
-    # quadratic expanded scalar-wise with Python-float coefficients
-    # (see _concrete_floats; None when mean/cov are traced).
+    # chains-on-lanes form: the 2x2 quadratic expanded scalar-wise with
+    # Python-float coefficients (see _concrete_floats; None when mean/cov
+    # are traced).
     coeffs = _concrete_floats(
         mean[0], mean[1],
         inv_cov[0, 0], inv_cov[0, 1], inv_cov[1, 0], inv_cov[1, 1],
@@ -97,19 +106,22 @@ def diffable_gaussian2d(mean, cov) -> Target:
 
     def logp(x):
         diff = x - mean.astype(x.dtype)
-        return norm_const.astype(x.dtype) - 0.5 * diff @ inv_cov.astype(x.dtype) @ diff
+        return norm_const.astype(x.dtype) - 0.5 * _quad(
+            diff, inv_cov.astype(x.dtype)
+        )
 
     def logp_batch(positions):
         delta = positions - mean.astype(positions.dtype)[None, :]
-        z = delta @ inv_cov.astype(positions.dtype)
+        z = jnp.dot(delta, inv_cov.astype(positions.dtype), precision=_HI)
         quad = jnp.sum(z * delta, axis=-1)
         return norm_const.astype(positions.dtype) - 0.5 * quad
 
     def grad(x):
         # d/dx [-(1/2)(x-m)^T S^-1 (x-m)] = -S^-1 (x-m) (inv_cov symmetric)
-        return -inv_cov.astype(x.dtype) @ (x - mean.astype(x.dtype))
+        return -jnp.dot(inv_cov.astype(x.dtype), x - mean.astype(x.dtype),
+                        precision=_HI)
 
-    # chains-on-lanes forms for Pallas kernels: pos_dc is [2, ...]; the 2x2
+    # chains-on-lanes forms: pos_dc is [2, ...]; the 2x2
     # quadratic is expanded scalar-wise with Python-float coefficients
     # (see _concrete_floats; None when mean/cov are traced).
     coeffs = _concrete_floats(
@@ -159,12 +171,8 @@ def isotropic_gaussian_proposal(std) -> Proposal:
         d = frm.shape[-1]
         return lp - d * 0.5 * jnp.log(var * math.pi * std * std)
 
-    def propose_dc(rng, pos):
-        return pos + std * rng.normals(pos.shape)
-
     # shape-generic: one key draws the whole [C, D] batch
     return Proposal(sample=sample, logp=logp, sample_batch=sample,
-                    propose_dc=propose_dc, symmetric=True,
                     scaled=lambda f: isotropic_gaussian_proposal(std * f))
 
 
@@ -268,9 +276,8 @@ def neal_funnel(scale: float = 3.0) -> Target:
         return jnp.concatenate([gv[None], gx])
 
     def logp_dc(p):  # [D, ...] -> [...] (elementwise only; the
-        # per-coordinate sum unrolls over the static row count, so the
-        # fused Pallas tiers run this pathological geometry too —
-        # grad_dc comes from Target.dc_forms()'s AD derivation)
+        # per-coordinate sum unrolls over the static row count; grad_dc
+        # comes from Target.dc_forms()'s AD derivation)
         v = p[0]
         d = p.shape[0] - 1
         emv = jnp.exp(-v)

@@ -47,25 +47,7 @@ def gaussian_mixture_conditional(mu0, sigma0, mu1, sigma1, pi0) -> Conditional:
 
         return jax.lax.cond(index == 0, sample_x, sample_z, key)
 
-    def sample_dc(rng, index, state):
-        # chains-on-lanes form for the fused Pallas sweep kernel
-        # (ops/pallas/gibbs_full.py): state [2, ...], index is a static
-        # Python int (the in-kernel sweep is unrolled), draws come from
-        # the in-kernel hardware PRNG namespace.
-        x, z = state[0], state[1]
-        if index == 0:
-            mu = jnp.where(z < 0.5, mu0, mu1)
-            sigma = jnp.where(z < 0.5, sigma0, sigma1)
-            return mu + sigma * rng.normals(x.shape)
-        p0 = pi0 * normal_pdf(x, mu0, sigma0)
-        p1 = (1.0 - pi0) * normal_pdf(x, mu1, sigma1)
-        total = p0 + p1
-        prob_z1 = jnp.where(total > 0.0, p1 / total, 0.5)
-        u = rng.uniform(x.shape)
-        return jnp.where(u < prob_z1, 1.0, 0.0).astype(state.dtype)
-
-    return Conditional(sample=sample, sample_batch=sample,
-                       sample_dc=sample_dc)
+    return Conditional(sample=sample, sample_batch=sample)
 
 
 def constant_conditional(value) -> Conditional:

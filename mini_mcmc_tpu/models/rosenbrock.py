@@ -67,7 +67,7 @@ def rosenbrock_nd() -> Target:
         return g
 
     def logp_dc(pos_dc):
-        # chains-on-lanes layout [D, C] -> [C] (for Pallas kernels)
+        # chains-on-lanes layout [D, C] -> [C]
         low = pos_dc[:-1]
         high = pos_dc[1:]
         term_1 = 100.0 * (high - low * low) ** 2
@@ -75,7 +75,7 @@ def rosenbrock_nd() -> Target:
         return -jnp.sum(term_1 + term_2, axis=0)
 
     def grad_dc(pos_dc):
-        # concat-based (no scatter: Pallas TPU has no scatter-add lowering)
+        # concat-based: two shifted adds instead of a scatter-add
         low = pos_dc[:-1]
         high = pos_dc[1:]
         d = high - low * low

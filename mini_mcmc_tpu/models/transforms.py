@@ -15,7 +15,7 @@ first-class:
     nuts = NUTS(t_y, transform.to_y(x0))  # start from natural-space inits
     x_samples = transform.to_x(nuts.run(1000, 500))
 
-Design notes (TPU-first):
+Design notes:
 
 - Bijectors are ELEMENTWISE scalar maps; ``CoordinateTransform`` groups
   coordinates by bijector and applies each group with one masked
@@ -27,7 +27,7 @@ Design notes (TPU-first):
   closures — the same ones-cotangent trick as
   :func:`~mini_mcmc_tpu.models.base.derive_grad_dc` — so a custom
   ``Bijector`` needs only ``forward``/``inverse``/``log_det``.
-- ``wrap()`` carries EVERY form the fused Pallas tiers consume: hand-written
+- ``wrap()`` carries every form a target may have: hand-written
   ``logp_dc``/``grad_dc`` compose per-row (the dc layout indexes
   coordinates as ``p[d]``, so per-coordinate bijections are natural
   there); built-in forwards are total on R (``exp``, ``sigmoid``), so the
@@ -218,7 +218,7 @@ def interval(low: float, high: float) -> Bijector:
 def _elem_grad(f: Callable) -> Callable:
     """Elementwise derivative of an elementwise map via the ones-cotangent
     VJP (the derive_grad_dc trick — valid because the Jacobian is
-    diagonal); traces into Pallas kernel bodies."""
+    diagonal)."""
 
     def df(y):
         out, vjp = jax.vjp(f, y)
@@ -361,8 +361,8 @@ class CoordinateTransform:
         of ``y``), and the chains-on-lanes ``logp_dc``/``grad_dc`` forms
         (per-row composition, left out above ``_DC_MAX_DIM`` where
         ``Target.dc_forms()``'s derivation takes over). The wrapped target
-        plugs into every sampler and every ``use_pallas`` tier; samples
-        come back in y-space — map them with :meth:`to_x`.
+        plugs into every sampler; samples come back in y-space — map them
+        with :meth:`to_x`.
         """
         if self.is_identity:
             return target
@@ -405,39 +405,6 @@ class CoordinateTransform:
                             )[None])
                     return jnp.concatenate(rows, axis=0)
 
-        # Per-coordinate bijectors preserve coordinate separability, so
-        # the transformed target keeps the separable fused HMC tier
-        # (constrained sampling at large D): each bijector group's
-        # membership mask rides a coordinate TABLE — kernel tiles receive
-        # their [1, d'] mask slices via the grid mapping and apply the
-        # group's forward/log-Jacobian only where masked. The bijector
-        # closures are elementwise jnp ops (exp/log1p/tanh), which Mosaic
-        # lowers. Composes with an inner sep_form (its tables go first).
-        inner_tile, inner_tabs = target.sep_forms()
-        n_inner = len(inner_tabs)
-        group_bijs = [bij for bij, _ in self._groups]
-
-        def sep_tile_logp(y, *tabs, _f=inner_tile, _n=n_inner,
-                          _bijs=group_bijs):
-            masks = tabs[_n:]
-            x = y
-            acc = jnp.zeros(y.shape[:-1], y.dtype)
-            zero = jnp.zeros_like(y)
-            for bij, m in zip(_bijs, masks):
-                sel = m > 0
-                x = jnp.where(sel, bij.forward(y), x)
-                acc = acc + jnp.sum(
-                    jnp.where(sel, bij.log_det(y), zero), axis=-1
-                )
-            return _f(x, *tabs[:_n]) + acc
-
-        sep_form = (
-            sep_tile_logp,
-            tuple(inner_tabs) + tuple(
-                mask.astype(jnp.float32) for _, mask in self._groups
-            ),
-        )
-
         return Target(
             logp=logp,
             logp_batch=logp_batch,
@@ -445,7 +412,6 @@ class CoordinateTransform:
             logp_normalized=logp_normalized,
             logp_dc=logp_dc,
             grad_dc=grad_dc,
-            sep_form=sep_form,
         )
 
 

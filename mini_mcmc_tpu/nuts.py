@@ -38,14 +38,6 @@ class NUTS:
         max_depth: tree-depth cap (the reference recursion is uncapped;
             10 is Stan's default).
         seed: optional base seed.
-        use_pallas: ``True`` fuses each subtree build into one Pallas
-            kernel; ``"full"`` fuses the ENTIRE step (momentum/slice
-            draws, doubling loop with early exit, subtrees, U-turn
-            checks) into one hardware-PRNG kernel — the peak-throughput
-            tier (TPU-only, ops/pallas/nuts_full.py; ~3x the subtree
-            kernel). Missing ``logp_dc``/``grad_dc`` forms are derived
-            (``Target.dc_forms()``); hand-written ones are checked
-            against the batch form at construction (``validate_dc``).
         metric: optional :class:`~mini_mcmc_tpu.models.Preconditioner` —
             runs NUTS in whitened coordinates ``y = L^-1 x`` (equivalent
             to a ``(L L^T)^-1`` mass matrix; beyond-reference, see
@@ -60,16 +52,12 @@ class NUTS:
         target_accept_p: float = 0.8,
         max_depth: int = 10,
         seed: Optional[int] = None,
-        use_pallas: bool = False,
-        pallas_interpret: bool = False,
         warmup_max_depth: Optional[int] = None,
         metric=None,
-        validate_dc: bool = True,
         transform=None,
     ):
         import jax.numpy as jnp  # noqa: F401 — kept for subclass hooks
 
-        from .models.base import validate_dc_forms
         from .samplers import _wrap_sampler_target
 
         if warmup_max_depth is not None and not (
@@ -86,23 +74,14 @@ class NUTS:
         self.transform = transform
         self._ctor = dict(
             target_accept_p=target_accept_p, max_depth=max_depth,
-            use_pallas=use_pallas, pallas_interpret=pallas_interpret,
-            warmup_max_depth=warmup_max_depth, validate_dc=validate_dc,
-            transform=transform,
+            warmup_max_depth=warmup_max_depth, transform=transform,
         )
         kernel_target, self._positions_map, initial_positions = (
             _wrap_sampler_target(target, initial_positions, transform,
                                  metric)
         )
-        if use_pallas and validate_dc:
-            # validate the target the fused tiers actually consume (the
-            # full transform+metric wrap) on kernel coordinates: a wrong
-            # hand-written chains-on-lanes form would silently sample the
-            # wrong posterior through every use_pallas path
-            validate_dc_forms(kernel_target, initial_positions)
         init_fn, prepare_fn, step_fn = nuts_kernel(
             kernel_target, target_accept_p, max_depth,
-            use_pallas=use_pallas, pallas_interpret=pallas_interpret,
             warmup_max_depth=warmup_max_depth,
         )
         # Copy: run() donates state buffers; don't invalidate the caller's
@@ -230,12 +209,10 @@ class NUTS:
         doubling loop whether or not its own tree finished earlier
         (ops/nuts.py:21-39). One gradient evaluation per leapfrog (the
         per-step initial gradient and ``find_reasonable_epsilon`` are
-        extra). Live on every path including ``use_pallas="full"`` (the
-        fused kernel reports its executed block depth; under its chain
-        blocking, J is constant within each 8k-chain grid block). The
-        counter saturates at ~2.0e9 instead of wrapping int32 — restart
-        accounting before that for exact per-run deltas. ``-1`` only for
-        state restored from a pre-depth-reporting fused checkpoint.
+        extra). The counter saturates at ~2.0e9 instead of wrapping
+        int32 — restart accounting before that for exact per-run deltas.
+        ``-1`` only for state restored from a checkpoint that predates the
+        counter.
         Divide the per-run delta by the run's steps for grad-evals/draw —
         the number to weigh against ``ChEESHMC``'s fixed
         ``traj_len / (2 * step_size)``."""

@@ -8,7 +8,7 @@ beyond-reference, but with the reference's exact constants (GAMMA, T_0,
 KAPPA re-used from ``ops/nuts.py``) so the two adaptation paths stay
 comparable.
 
-TPU shape: the whole warmup is ONE ``lax.scan`` over the adaptation steps —
+Shape: the whole warmup is ONE ``lax.scan`` over the adaptation steps —
 the per-step acceptance statistic is a cross-chain mean (a scalar), so the
 carried adaptation state is 3 scalars and the program compiles once for a
 given ``n_adapt``.

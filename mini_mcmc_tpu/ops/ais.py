@@ -22,7 +22,7 @@ ANY number of MH steps — the schedule controls variance, never bias — and
 ``logsumexp(log_w) - log N`` is a consistent (slightly conservative,
 Jensen-biased-low) estimator of ``log Z``.
 
-TPU-native design: the particle population is one ``[N, D]`` lockstep
+Batched design: the particle population is one ``[N, D]`` lockstep
 batch (the same batched-MH update as ``ops/mh.py``), the anneal is a
 single ``lax.scan`` over a static rung schedule — one compiled program,
 zero host round-trips, and nothing reduces across particles inside the

@@ -21,7 +21,7 @@ Halton sequence), so the whole batch stays in lockstep: the only
 data-dependent quantity is the SCALAR leapfrog count, a
 ``lax.while_loop`` trip count — no per-chain divergence, unlike NUTS trees.
 
-TPU shape: the entire warmup is ONE ``lax.scan`` over adaptation steps; the
+Shape: the entire warmup is ONE ``lax.scan`` over adaptation steps; the
 cross-chain reductions (two means, two weighted sums) are the only
 collectives when chains are sharded over a mesh, and they vanish after
 warmup — the production kernel (:func:`chees_hmc_kernel`) samples with zero

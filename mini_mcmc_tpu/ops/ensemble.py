@@ -2,7 +2,7 @@
 
 Beyond-reference capability (the Rust reference has no ensemble sampler):
 the gradient-free workhorse popularized by ``emcee`` (Foreman-Mackey et al.
-2013), here in its TPU-native form. The complementary-ensemble ("red-black")
+2013), here in its batched form. The complementary-ensemble ("red-black")
 update is embarrassingly batchable: each ensemble's walkers are split into
 two fixed halves, and every walker in the active half moves simultaneously
 against a random partner from the other half —

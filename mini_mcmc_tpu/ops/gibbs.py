@@ -1,6 +1,6 @@
 """Batched Gibbs sweep kernel.
 
-TPU-native redesign of ``GibbsMarkovChain::step``
+Batched redesign of ``GibbsMarkovChain::step``
 (/root/reference/src/gibbs.rs:95-99): one step = a full coordinate sweep,
 ``state[i] = conditional(key, i, state)`` for i = 0..D-1, expressed as a
 ``lax.fori_loop`` inside the batched step so all chains sweep in lockstep.
@@ -19,64 +19,25 @@ from jax import lax
 
 from ..models.base import Conditional
 from ..runner import make_scan_block_fn
-from .pallas.rng import key_to_seed
 
 
 class GibbsState(NamedTuple):
     positions: jax.Array  # [C, D]
 
 
-def gibbs_kernel(conditional: Conditional, *, n_dim: int | None = None,
-                 use_pallas=False, steps_per_call: int = 1,
-                 pallas_interpret: bool = False):
+def gibbs_kernel(conditional: Conditional, *, steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for a batched Gibbs sweep.
 
     ``init_fn(positions [C, D]) -> GibbsState``
     ``step_fn(state, key) -> GibbsState``
 
-    ``use_pallas="full"`` fuses the whole sweep (hardware-PRNG conditional
-    draws, statically unrolled coordinate loop) into one on-chip Pallas
-    kernel (``ops/pallas/gibbs_full.py``): requires
-    ``conditional.sample_dc`` and ``n_dim``; distribution-identical to the
-    XLA path on a different (hardware) PRNG stream; TPU-only.
     ``steps_per_call`` > 1 additionally attaches a K-sweep block function
-    (``step_fn.block_fn``/``block_size``) fusing K full sweeps per kernel
-    invocation — the same amortization as the fused MH/HMC blocks. All
-    recorded positions are kept; nothing is thinned.
+    (``step_fn.block_fn``/``block_size``) that scans K full sweeps per
+    call (``runner.make_scan_block_fn``). All recorded positions are kept;
+    nothing is thinned.
     """
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    pallas_multistep = None
-    pallas_single = None
-    if use_pallas:
-        if use_pallas != "full":
-            raise ValueError(
-                "Gibbs has no trajectory to fuse separately — the only "
-                f'Pallas variant is use_pallas="full"; got {use_pallas!r}'
-            )
-        if conditional.sample_dc is None:
-            raise ValueError(
-                'use_pallas="full" requires conditional.sample_dc'
-            )
-        if n_dim is None:
-            raise ValueError(
-                'use_pallas="full" needs the static state dimension n_dim '
-                "(the in-kernel coordinate sweep is unrolled over it)"
-            )
-        from .pallas.gibbs_full import make_pallas_gibbs_multistep
-
-        # K=1 driver: compile the history output out (the returned
-        # positions ARE the step's sample row; pallas outputs are opaque
-        # to XLA DCE).
-        pallas_single = make_pallas_gibbs_multistep(
-            conditional.sample_dc, n_dim, 1,
-            interpret=pallas_interpret, with_history=False,
-        )
-        if steps_per_call > 1:
-            pallas_multistep = make_pallas_gibbs_multistep(
-                conditional.sample_dc, n_dim, steps_per_call,
-                interpret=pallas_interpret,
-            )
 
     def init_fn(positions: jax.Array) -> GibbsState:
         return GibbsState(positions=jnp.asarray(positions))
@@ -93,9 +54,6 @@ def gibbs_kernel(conditional: Conditional, *, n_dim: int | None = None,
 
     def step_fn(state: GibbsState, key: jax.Array) -> GibbsState:
         n_chains, dim = state.positions.shape
-        if pallas_single is not None:
-            (positions,) = pallas_single(state.positions, key_to_seed(key))
-            return GibbsState(positions=positions)
         if conditional.sample_batch is not None:
             # batched sweep: one key per coordinate, tensor ops over chains
             coord_keys = jax.random.split(key, dim)
@@ -112,17 +70,7 @@ def gibbs_kernel(conditional: Conditional, *, n_dim: int | None = None,
         return GibbsState(positions=positions)
 
     if steps_per_call > 1:
-        if pallas_multistep is not None:
-
-            def block_fn(state: GibbsState, key: jax.Array):
-                positions, rows = pallas_multistep(
-                    state.positions, key_to_seed(key)
-                )
-                return GibbsState(positions), rows
-        else:
-            block_fn = make_scan_block_fn(step_fn, steps_per_call)
-
-        step_fn.block_fn = block_fn
+        step_fn.block_fn = make_scan_block_fn(step_fn, steps_per_call)
         step_fn.block_size = steps_per_call
 
     return init_fn, step_fn

@@ -1,6 +1,6 @@
 """Batched Hamiltonian Monte Carlo step kernel.
 
-TPU-native redesign of the reference's data-parallel HMC
+Batched redesign of the reference's data-parallel HMC
 (``HMC::step``/``leapfrog``, /root/reference/src/hmc.rs:304-431): all chains
 advance in lockstep as ``[n_chains, D]`` tensors; the leapfrog integrator is
 a ``lax.scan`` over L steps that keeps the reference's fused half-step trick
@@ -26,7 +26,6 @@ from jax import lax
 
 from ..models.base import Target
 from ..runner import make_scan_block_fn
-from .pallas.rng import key_to_seed
 
 
 class HMCState(NamedTuple):
@@ -35,24 +34,11 @@ class HMCState(NamedTuple):
     grad: jax.Array  # [C, D] cached gradient at positions
 
 
-class HMCSepState(NamedTuple):
-    """State for the large-D separable tier (``use_pallas="separable"``):
-    no gradient cache — the fused kernel recomputes the (elementwise)
-    gradient from the positions in VMEM, so carrying a [C, D] gradient
-    through HBM every step would only burn the bandwidth the tier exists
-    to save."""
-
-    positions: jax.Array  # [C, D]
-    logp: jax.Array  # [C] cached target log density at positions
-
-
 def hmc_kernel(
     target: Target,
     step_size: float,
     n_leapfrog: int,
     unroll: int | bool = 8,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
     jitter: float = 0.0,
     steps_per_call: int = 1,
 ):
@@ -61,23 +47,10 @@ def hmc_kernel(
     ``init_fn(positions [C, D]) -> HMCState``
     ``step_fn(state, key) -> HMCState``
 
-    ``unroll`` controls leapfrog-scan unrolling: per-iteration loop overhead
-    dominates the (tiny, VPU-bound) integrator body on TPU, so unrolling
-    several leapfrog steps into one loop body is a large win.
-
-    ``use_pallas`` swaps the XLA leapfrog scan for the fused Pallas
-    trajectory kernel (``ops/pallas/hmc.py``) — requires the target to carry
-    ``logp_dc``/``grad_dc`` chains-on-lanes forms. Momentum/accept draws stay
-    in the standard path, so the algorithm (and its PRNG stream) is
-    unchanged; only the integrator implementation differs.
-
-    ``use_pallas == "separable"`` selects the large-D tier for
-    coordinate-separable targets (``logp(x) = sum_d f_d(x_d)``,
-    ``ops/pallas/hmc_bigd.py``): the whole trajectory runs per
-    [block_c, block_d] VMEM tile with in-kernel momentum (hardware PRNG —
-    distribution-identical, different stream) and the accept in XLA.
-    Separability is validated at sampler construction
-    (``models.base.validate_separable``).
+    ``unroll`` controls leapfrog-scan unrolling: at small D the integrator
+    body is a few elementwise ops, so per-iteration loop overhead is a
+    large share of a step and unrolling several leapfrog steps into one
+    loop body amortizes it.
 
     ``jitter`` > 0 scales the step size per sampler step by a shared
     Uniform[1-jitter, 1+jitter] factor (Neal 2011's standard remedy for
@@ -85,85 +58,20 @@ def hmc_kernel(
     drawn independently of the state, so detailed balance is preserved.
     With jitter == 0 the PRNG stream is identical to the unjittered kernel.
 
+    ``step_fn.leapfrog(pos, mom, logp, grad, eps)`` is the integrator the
+    step runs (L leapfrog steps from the given momenta), exposed so it can
+    be checked against a reference on its own.
+
     ``steps_per_call`` > 1 additionally attaches a K-step block function to
     the returned ``step_fn`` (``step_fn.block_fn``, ``step_fn.block_size``):
     ``block_fn(state, key) -> (state, rows [K, C, D])`` advances K full
-    sampler steps and returns every intermediate position. With
-    ``use_pallas == "full"`` the whole block runs inside ONE Pallas kernel,
-    amortizing the ~40 us per-step fixed cost (kernel entry + layout
-    round-trips + scan glue) K ways; otherwise the block is an XLA scan
-    over K steps (no speedup, but the same contract — used to test the
-    block plumbing off-TPU). Use with ``runner.make_block_runner``.
+    sampler steps and returns every intermediate position, as an XLA scan
+    over K steps. Use with ``runner.make_block_runner``.
     """
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    pallas_traj = None
-    pallas_full = None
-    pallas_multistep = None
-    pallas_sep = None
-    if use_pallas == "separable":
-        # Large-D tier for coordinate-separable targets: the whole
-        # trajectory runs per VMEM tile (momentum drawn in-kernel, never
-        # touching HBM; gradient recomputed from the density per tile);
-        # the kernel emits per-(chain, d-tile) partial energies and the
-        # accept/select runs in XLA. No dc forms needed — the kernel
-        # evaluates batch_logp on coordinate tiles. (A variant with the
-        # accept fused in-kernel over [bc, D] tiles was measured SLOWER
-        # at L=40 — an unexplained Mosaic scheduling effect — and no
-        # faster at L=10, so one kernel shape is kept.)
-        from .pallas.hmc_bigd import make_pallas_hmc_separable
-
-        sep_tile_logp, sep_tables = target.sep_forms()  # tables [1, D]
-        pallas_sep = make_pallas_hmc_separable(
-            sep_tile_logp, n_leapfrog, n_tables=len(sep_tables),
-            interpret=pallas_interpret,
-        )
-    elif use_pallas:
-        # Both forms derive when absent (models/base.py dc_forms): a plain
-        # Target(logp=...) reaches the fused tiers with zero extra code.
-        logp_dc, grad_dc = target.dc_forms()
-        if use_pallas == "full":
-            # Entire step (momentum RNG + trajectory + accept) on-chip with
-            # the hardware PRNG; distribution-identical, different stream.
-            from .pallas.hmc_full import make_pallas_hmc_step
-
-            pallas_full = make_pallas_hmc_step(
-                grad_dc,
-                logp_dc,
-                step_size,
-                n_leapfrog,
-                interpret=pallas_interpret,
-            )
-            if steps_per_call > 1:
-                from .pallas.hmc_full import make_pallas_hmc_multistep
-
-                pallas_multistep = make_pallas_hmc_multistep(
-                    grad_dc,
-                    logp_dc,
-                    step_size,
-                    n_leapfrog,
-                    steps_per_call,
-                    interpret=pallas_interpret,
-                )
-        else:
-            from .pallas.hmc import make_pallas_leapfrog
-
-            pallas_traj = make_pallas_leapfrog(
-                grad_dc,
-                logp_dc,
-                step_size,
-                n_leapfrog,
-                interpret=pallas_interpret,
-            )
 
     def init_fn(positions: jax.Array):
-        if pallas_sep is not None:
-            # pin the carry dtype against a promoting user logp (CLAUDE.md
-            # kernel invariant; the kernel's partial energies are pos-dtype)
-            return HMCSepState(
-                positions=positions,
-                logp=target.batch_logp(positions).astype(positions.dtype),
-            )
         logp, grad = target.batch_logp_and_grad(positions)
         return HMCState(positions=positions, logp=logp, grad=grad)
 
@@ -189,55 +97,23 @@ def hmc_kernel(
         )
         return pos, mom, logp, grad
 
-    def _sep_step(state: HMCSepState, key: jax.Array, eps: jax.Array):
-        """One separable-tier step: the fused per-tile trajectory kernel
-        (momentum in-kernel, HBM traffic independent of L), then
-        accept/select in XLA from the kernel's per-(chain, d-tile)
-        partial energies. No gradient buffer exists anywhere — the
-        kernel re-derives it from the density in VMEM."""
-        pos = state.positions
-        c = pos.shape[0]
-        eps = jnp.asarray(eps, pos.dtype)
-        seed = key_to_seed(jax.random.fold_in(key, 0))
-        pos_prop, pe, ke0, ke1 = pallas_sep(pos, seed, eps, *sep_tables)
-        logp_prop = jnp.sum(pe, axis=1)
-        h_current = -state.logp + jnp.sum(ke0, axis=1)
-        h_proposed = -logp_prop + jnp.sum(ke1, axis=1)
-        accept_logp = h_current - h_proposed
-        alpha_c = jnp.exp(jnp.minimum(accept_logp, 0.0))
-        alpha = jnp.mean(jnp.where(jnp.isnan(alpha_c), 0.0, alpha_c))
-        u = jax.random.uniform(
-            jax.random.fold_in(key, 1), (c,), accept_logp.dtype
-        )
-        accept = accept_logp >= jnp.log(u)  # NaN compares False
-        positions = jnp.where(accept[:, None], pos_prop, pos)
-        logp = jnp.where(accept, logp_prop, state.logp)
-        return HMCSepState(positions, logp), alpha
-
     def step_eps(state: HMCState, key: jax.Array, eps: jax.Array):
-        """One non-fused HMC step at a (possibly traced) step size, also
+        """One HMC step at a (possibly traced) step size, also
         returning the cross-chain mean Metropolis acceptance probability
         (NaN-divergent proposals count as 0) — the hook ``ops/adapt.py``'s
         dual-averaging warmup drives. This IS the production step body:
         ``step_fn`` delegates here (alpha is dead code under jit when
         unused), so the tuner adapts exactly the kernel that runs."""
         n_chains = state.positions.shape[0]
-        if pallas_sep is not None:
-            return _sep_step(state, key, eps)
         key_mom, key_u = jax.random.split(key)
         eps = jnp.asarray(eps, state.positions.dtype)
         mom0 = jax.random.normal(
             key_mom, state.positions.shape, state.positions.dtype
         )
         h_current = -state.logp + 0.5 * jnp.sum(mom0 * mom0, axis=1)
-        if pallas_traj is not None:
-            pos_prop, mom_prop, logp_prop, grad_prop = pallas_traj(
-                state.positions, mom0, state.grad, eps
-            )
-        else:
-            pos_prop, mom_prop, logp_prop, grad_prop = leapfrog(
-                state.positions, mom0, state.logp, state.grad, eps
-            )
+        pos_prop, mom_prop, logp_prop, grad_prop = leapfrog(
+            state.positions, mom0, state.logp, state.grad, eps
+        )
         h_proposed = -logp_prop + 0.5 * jnp.sum(mom_prop * mom_prop, axis=1)
         # Accept iff H_cur - H_prop >= ln(u) per chain (hmc.rs:343-376).
         accept_logp = h_current - h_proposed
@@ -261,45 +137,14 @@ def hmc_kernel(
         else:
             eps = jnp.asarray(step_size, dtype)
 
-        if pallas_full is not None:
-            # Seed the hardware PRNG deterministically from the FULL 64-bit
-            # step key (two int32 words).
-            seed = key_to_seed(key)
-            positions, logp, grad = pallas_full(
-                state.positions, state.logp, state.grad, seed, eps
-            )
-            return HMCState(positions=positions, logp=logp, grad=grad)
-
         state, _ = step_eps(state, key, eps)
         return state
 
     step_fn.step_eps = step_eps
+    step_fn.leapfrog = leapfrog
 
     if steps_per_call > 1:
-        k = steps_per_call
-
-        def _eps_block(key: jax.Array, dtype):
-            if jitter > 0.0:
-                key_eps = jax.random.fold_in(key, 2)
-                factors = 1.0 + jitter * (
-                    2.0 * jax.random.uniform(key_eps, (k,), dtype) - 1.0
-                )
-                return jnp.asarray(step_size, dtype) * factors
-            return jnp.full((k,), step_size, dtype)
-
-        if pallas_multistep is not None:
-
-            def block_fn(state: HMCState, key: jax.Array):
-                dtype = state.positions.dtype
-                positions, logp, grad, rows = pallas_multistep(
-                    state.positions, state.logp, state.grad,
-                    key_to_seed(key), _eps_block(key, dtype),
-                )
-                return HMCState(positions, logp, grad), rows
-        else:
-            block_fn = make_scan_block_fn(step_fn, k)
-
-        step_fn.block_fn = block_fn
-        step_fn.block_size = k
+        step_fn.block_fn = make_scan_block_fn(step_fn, steps_per_call)
+        step_fn.block_size = steps_per_call
 
     return init_fn, step_fn

@@ -1,6 +1,6 @@
 """Vectorized Metropolis-Hastings step kernel.
 
-TPU-native redesign of the reference's per-chain scalar loop
+Batched redesign of the reference's per-chain scalar loop
 (``MHMarkovChain::step``, /root/reference/src/metropolis_hastings.rs:303-315):
 all chains advance in lockstep as a ``[n_chains, D]`` batch; propose, evaluate
 target and proposal log densities, and accept with a masked ``where`` instead
@@ -21,7 +21,6 @@ import jax.numpy as jnp
 
 from ..models.base import Proposal, Target
 from ..runner import make_scan_block_fn
-from .pallas.rng import key_to_seed
 
 
 class MHState(NamedTuple):
@@ -29,7 +28,7 @@ class MHState(NamedTuple):
     logp: jax.Array  # [n_chains] cached unnormalized target log density
 
 
-def _xla_mh_step(target: Target, proposal: Proposal, state: MHState,
+def _mh_step(target: Target, proposal: Proposal, state: MHState,
                  key: jax.Array):
     """One batched MH update; returns ``(MHState, log_accept [C])``.
 
@@ -77,7 +76,7 @@ def mh_step_alpha(target: Target, proposal_family):
         proposal = proposal_family(
             jnp.asarray(factor, state.positions.dtype)
         )
-        state, log_accept = _xla_mh_step(target, proposal, state, key)
+        state, log_accept = _mh_step(target, proposal, state, key)
         alpha = jnp.minimum(1.0, jnp.exp(log_accept))
         alpha = jnp.where(jnp.isnan(alpha), 0.0, alpha)
         return state, jnp.mean(alpha)
@@ -86,84 +85,29 @@ def mh_step_alpha(target: Target, proposal_family):
 
 
 def mh_kernel(target: Target, proposal: Proposal, *,
-              use_pallas=False, steps_per_call: int = 1,
-              pallas_interpret: bool = False):
+              steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for batched MH.
 
     ``init_fn(positions [C, D]) -> MHState``
     ``step_fn(state, key) -> MHState``
 
-    ``use_pallas="full"`` fuses the entire update (hardware-PRNG proposal +
-    target eval + accept) into one on-chip Pallas kernel
-    (``ops/pallas/mh_full.py``): requires ``target.logp_dc`` and a
-    symmetric proposal with ``propose_dc``; distribution-identical to the
-    XLA path on a different (hardware) PRNG stream; TPU-only.
     ``steps_per_call`` > 1 additionally attaches a K-step block function
-    (``step_fn.block_fn``/``block_size``) fusing K full updates per kernel
-    invocation — the same amortization as the fused HMC blocks
-    (``ops/hmc.py``). All recorded positions are kept; nothing is thinned.
+    (``step_fn.block_fn``/``block_size``) that scans K full updates per
+    call (``runner.make_scan_block_fn``). All recorded positions are kept;
+    nothing is thinned.
     """
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    pallas_multistep = None
-    pallas_single = None
-    if use_pallas:
-        if use_pallas != "full":
-            raise ValueError(
-                "MH has no trajectory to fuse separately — the only Pallas "
-                f'variant is use_pallas="full"; got {use_pallas!r}'
-            )
-        # logp_dc derives from the batch form when absent (models/base.py
-        # dc_forms): Target(logp=...) alone reaches the fused tier.
-        logp_dc, _ = target.dc_forms()
-        if proposal.propose_dc is None or not proposal.symmetric:
-            raise ValueError(
-                'use_pallas="full" requires a symmetric proposal with '
-                "propose_dc (the kernel skips the cancelling q terms)"
-            )
-        from .pallas.mh_full import make_pallas_mh_multistep
-
-        # K=1 driver: compile the history output out (the returned
-        # positions ARE the step's sample row; a discarded pallas output
-        # would still be allocated and written — outputs are opaque to
-        # XLA DCE).
-        pallas_single = make_pallas_mh_multistep(
-            logp_dc, proposal.propose_dc, 1,
-            interpret=pallas_interpret, with_history=False,
-        )
-        if steps_per_call > 1:
-            pallas_multistep = make_pallas_mh_multistep(
-                logp_dc, proposal.propose_dc, steps_per_call,
-                interpret=pallas_interpret,
-            )
 
     def init_fn(positions: jax.Array) -> MHState:
         return MHState(positions=positions, logp=target.batch_logp(positions))
 
     def step_fn(state: MHState, key: jax.Array) -> MHState:
-        if pallas_single is not None:
-            seed = key_to_seed(key)
-            positions, logp = pallas_single(
-                state.positions, state.logp, seed
-            )
-            return MHState(positions=positions, logp=logp)
-        state, _ = _xla_mh_step(target, proposal, state, key)
+        state, _ = _mh_step(target, proposal, state, key)
         return state
 
     if steps_per_call > 1:
-        k = steps_per_call
-
-        if pallas_multistep is not None:
-
-            def block_fn(state: MHState, key: jax.Array):
-                positions, logp, rows = pallas_multistep(
-                    state.positions, state.logp, key_to_seed(key)
-                )
-                return MHState(positions, logp), rows
-        else:
-            block_fn = make_scan_block_fn(step_fn, k)
-
-        step_fn.block_fn = block_fn
-        step_fn.block_size = k
+        step_fn.block_fn = make_scan_block_fn(step_fn, steps_per_call)
+        step_fn.block_size = steps_per_call
 
     return init_fn, step_fn

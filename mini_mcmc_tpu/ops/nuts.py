@@ -1,6 +1,6 @@
 """No-U-Turn Sampler step kernel (iterative, lockstep-batched).
 
-TPU-native redesign of the reference's recursive NUTS
+Batched redesign of the reference's recursive NUTS
 (/root/reference/src/nuts.rs:550-996, Hoffman & Gelman Algorithm 6 with
 slice sampling and dual-averaging adaptation). The reference recursion is
 data-dependent per chain and runs one chain per OS thread; that cannot map
@@ -18,7 +18,7 @@ builder* that is exactly equivalent (see docs/design.md for the argument):
   remaining unequal-size merges only affect fields that are unused when
   ``s = false`` (boundaries, proposal), so they are skipped.
 
-Batching design (the part that makes this fast on TPU):
+Batching design (the part that makes this fast on an accelerator):
 
 - The whole step is hand-batched over chains — **no vmap**. ``vmap`` of
   nested ``while_loop``s inserts a ``select`` over *every* carry for *every*
@@ -83,10 +83,9 @@ class NUTSState(NamedTuple):
     #: step for a J-deep doubling loop) — the lockstep COST including
     #: masked-lane waste, not per-chain useful work; one gradient eval per
     #: leapfrog (the per-step initial grad and the epsilon search are not
-    #: included). Live on every path, including ``use_pallas="full"``
-    #: (the fused kernel reports its executed block depth). Saturates at
-    #: ``_LEAPFROG_SAT`` (~2.0e9) instead of wrapping int32; -1 only for
-    #: states restored from pre-depth-reporting fused-kernel checkpoints.
+    #: included). Saturates at ``_LEAPFROG_SAT`` (~2.0e9) instead of
+    #: wrapping int32; -1 only for states restored from checkpoints that
+    #: predate the counter.
     #: The ``None`` default exists ONLY so checkpoints written before this
     #: field was added still unflatten (their pickled treedef constructs
     #: the state with one fewer leaf); ``restore_sampler`` fills the
@@ -187,7 +186,7 @@ def find_reasonable_epsilon_batch(target: Target, positions, mom):
     Same per-chain semantics as the scalar version (which stays as the
     test oracle), but with ONE masked ``while_loop`` over batched tensors:
     each iteration is a single ``[C, D]`` leapfrog (one batched
-    logp-and-grad on the MXU) instead of vmapping a per-chain nested
+    logp-and-grad) instead of vmapping a per-chain nested
     ``while_loop`` — the batched-while select over every per-chain carry
     the module docstring's tree builder was hand-batched to avoid. Chains
     freeze (``where`` on an active mask) once their own exit condition
@@ -497,15 +496,9 @@ def _nuts_step_batched(
     max_depth: int,
     state: "NUTSState",
     key: jax.Array,
-    pallas_subtree=None,
     warmup_max_depth: int | None = None,
 ) -> "NUTSState":
-    """One NUTS update for all chains in lockstep (nuts.rs:550-691).
-
-    ``pallas_subtree``, if given, replaces the XLA tree builder with the
-    fused Pallas kernel (ops/pallas/nuts_subtree.py) — same algorithm,
-    hash-derived merge uniforms (different stream).
-    """
+    """One NUTS update for all chains in lockstep (nuts.rs:550-691)."""
     positions = state.positions
     dtype = positions.dtype
     c, dim = positions.shape
@@ -540,23 +533,11 @@ def _nuts_step_batched(
         start_mom = jnp.where(neg, mom_minus, mom_plus)
         start_grad = jnp.where(neg, grad_minus, grad_plus)
 
-        if pallas_subtree is not None:
-            # full 64-bit step key as two int32 words (xor-folding to one
-            # word birthday-collides streams after ~2^16 steps; see
-            # _hash_unit in ops/pallas/nuts_subtree.py)
-            seed = jax.random.key_data(
-                jax.random.fold_in(key_tree, j)
-            ).astype(jnp.uint32).astype(jnp.int32).reshape(2)
-            res = _TreeResult(*pallas_subtree(
-                start_pos, start_mom, start_grad,
-                logu, v, j, state.epsilon, joint, s, seed,
-            ))
-        else:
-            res = _build_subtree_batched(
-                target, max_depth, start_pos, start_mom, start_grad,
-                logu, v, j, state.epsilon, joint, s,
-                jax.random.fold_in(key_tree, j),
-            )
+        res = _build_subtree_batched(
+            target, max_depth, start_pos, start_mom, start_grad,
+            logu, v, j, state.epsilon, joint, s,
+            jax.random.fold_in(key_tree, j),
+        )
 
         upd_minus = neg & s[:, None]
         upd_plus = (~neg) & s[:, None]
@@ -610,16 +591,12 @@ def _nuts_step_batched(
 
 
 def _finish_step(state, target_accept_p, m, position_sel, alpha, n_alpha,
-                 diverged, leapfrog_inc=None):
-    """Dual averaging + state assembly (nuts.rs:676-691), shared by the
-    XLA doubling loop and the fused full-step Pallas kernel.
+                 diverged, leapfrog_inc):
+    """Dual averaging + state assembly (nuts.rs:676-691).
 
     ``leapfrog_inc``: this step's executed-leapfrog count (int32 scalar
-    from the XLA doubling loop, or per-chain ``[C]`` from the fused
-    full-step kernel's reported block depths). ``None`` pins the counter
-    to -1 (no current caller; kept for states restored from pre-depth
-    checkpoints). The accumulate SATURATES at ``_LEAPFROG_SAT`` instead
-    of wrapping int32 (ADVICE r4: a depth-10 tree adds 1023/step, so
+    from the doubling loop). The accumulate SATURATES at ``_LEAPFROG_SAT``
+    instead of wrapping int32 (ADVICE r4: a depth-10 tree adds 1023/step, so
     ~2.1M steps would wrap negative and sticky-pin the -1 sentinel)."""
     dtype = position_sel.dtype
     one = jnp.asarray(1.0, dtype)
@@ -637,17 +614,14 @@ def _finish_step(state, target_accept_p, m, position_sel, alpha, n_alpha,
     epsilon = jnp.where(warming, eps_warm, state.epsilon_bar)
     epsilon_bar = jnp.where(warming, eps_bar_warm, state.epsilon_bar)
 
-    if leapfrog_inc is None:
-        leapfrogs = jnp.full_like(state.leapfrogs, -1)
-    else:
-        sat = jnp.int32(_LEAPFROG_SAT)
-        # below sat the add cannot overflow (headroom >= any increment);
-        # at/above sat the add may wrap, but the outer where discards it
-        bumped = jnp.where(
-            state.leapfrogs >= sat, sat,
-            jnp.minimum(state.leapfrogs + leapfrog_inc, sat),
-        )
-        leapfrogs = jnp.where(state.leapfrogs >= 0, bumped, state.leapfrogs)
+    sat = jnp.int32(_LEAPFROG_SAT)
+    # below sat the add cannot overflow (headroom >= any increment);
+    # at/above sat the add may wrap, but the outer where discards it
+    bumped = jnp.where(
+        state.leapfrogs >= sat, sat,
+        jnp.minimum(state.leapfrogs + leapfrog_inc, sat),
+    )
+    leapfrogs = jnp.where(state.leapfrogs >= 0, bumped, state.leapfrogs)
     return NUTSState(
         positions=position_sel,
         epsilon=epsilon,
@@ -662,7 +636,6 @@ def _finish_step(state, target_accept_p, m, position_sel, alpha, n_alpha,
 
 
 def nuts_kernel(target: Target, target_accept_p: float, max_depth: int = 10,
-                use_pallas: bool = False, pallas_interpret: bool = False,
                 warmup_max_depth: int | None = None):
     """Build ``(init_fn, prepare_fn, step_fn)`` for batched NUTS.
 
@@ -672,35 +645,7 @@ def nuts_kernel(target: Target, target_accept_p: float, max_depth: int = 10,
     ``find_reasonable_epsilon`` for sentinel chains and resets
     ``mu = ln(10 * eps)`` (init_chain, nuts.rs:528-545).
     ``step_fn(state, key) -> NUTSState``.
-
-    ``use_pallas``: ``True`` fuses each subtree build into one Pallas
-    kernel (requires ``target.logp_dc``/``grad_dc`` and
-    ``n_chains % 1024 == 0``; merge-swap uniforms come from a counter
-    hash — a different but deterministic stream). ``"full"`` fuses the
-    ENTIRE step — momentum/slice draws, the doubling loop with early
-    exit, subtrees, U-turn checks — into one hardware-PRNG kernel
-    (ops/pallas/nuts_full.py; TPU-only, like ``HMC(use_pallas="full")``).
     """
-    pallas_subtree = None
-    pallas_step = None
-    if use_pallas:
-        # Both forms derive when absent (models/base.py dc_forms): a plain
-        # Target(logp=...) reaches the fused tiers with zero extra code.
-        logp_dc, grad_dc = target.dc_forms()
-        if use_pallas == "full":
-            from .pallas.nuts_full import make_pallas_nuts_step
-
-            pallas_step = make_pallas_nuts_step(
-                grad_dc, logp_dc, max_depth,
-                interpret=pallas_interpret,
-            )
-        else:
-            from .pallas.nuts_subtree import make_pallas_subtree
-
-            pallas_subtree = make_pallas_subtree(
-                grad_dc, logp_dc, max_depth,
-                interpret=pallas_interpret,
-            )
 
     def init_fn(positions: jax.Array) -> NUTSState:
         positions = jnp.asarray(positions)
@@ -744,27 +689,8 @@ def nuts_kernel(target: Target, target_accept_p: float, max_depth: int = 10,
         )
 
     def step_fn(state: NUTSState, key: jax.Array) -> NUTSState:
-        if pallas_step is not None:
-            from .pallas.rng import key_to_seed
-
-            m = state.m + 1  # reference increments at step start
-            depth_limit = _depth_limit(state, m, max_depth, warmup_max_depth)
-            position_sel, alpha, n_alpha, diverged, depth = pallas_step(
-                state.positions, state.epsilon, depth_limit,
-                key_to_seed(key),
-            )
-            # the kernel reports its executed doubling depth J per lane
-            # (constant within a grid block): the lockstep cost is
-            # 2^J - 1 leapfrogs, same accounting as the XLA loop below —
-            # the counter stays live under use_pallas="full"
-            leapfrog_inc = (jnp.int32(1) << depth.astype(jnp.int32)) - 1
-            return _finish_step(
-                state, target_accept_p, m, position_sel, alpha, n_alpha,
-                diverged, leapfrog_inc=leapfrog_inc,
-            )
         return _nuts_step_batched(
             target, target_accept_p, max_depth, state, key,
-            pallas_subtree=pallas_subtree,
             warmup_max_depth=warmup_max_depth,
         )
 

@@ -16,15 +16,15 @@ large-scale-production regime this framework targets.
 - **SGHMC** (Chen, Fox & Guestrin, ICML 2014): underdamped Langevin with
   friction, the momentum variant that survives gradient noise.
 
-TPU-native design:
+Batched design:
 
 - The gradient estimator is where the FLOPs are, and it is built so XLA can
-  put them on the MXU: :func:`minibatch_grad` hands the **whole minibatch**
-  to the user's ``log_like(position, batch) -> scalar`` in one call, so a
-  regression/classification likelihood is a single ``[B, D] @ [D]`` matmul
-  which, vmapped over the ``[C, D]`` chain batch, becomes one
-  ``[B, D] @ [D, C]`` MXU contraction per step — never a per-datum Python
-  loop, never per-datum vmap unless the user writes one.
+  hand them to the matmul units: :func:`minibatch_grad` hands the **whole
+  minibatch** to the user's ``log_like(position, batch) -> scalar`` in one
+  call, so a regression/classification likelihood is a single
+  ``[B, D] @ [D]`` matmul which, vmapped over the ``[C, D]`` chain batch,
+  becomes one ``[B, D] @ [D, C]`` matmul per step — never a per-datum
+  Python loop, never per-datum vmap unless the user writes one.
 - One shared minibatch per step across all chains (default): a single
   ``[B]`` gather from the device-resident dataset feeds every chain, so
   data movement is O(B) per step, not O(C*B). Each chain individually
@@ -108,7 +108,7 @@ def minibatch_grad(
         log_like: ``(position [D], batch) -> scalar`` — the SUMMED
             log-likelihood of the minibatch at one position. Receiving the
             whole batch (not one datum) lets regression-style likelihoods
-            be a single matmul, which vmapped over chains lands on the MXU.
+            be a single matmul, which vmapped over chains stays one matmul.
         data: a ``[N, ...]`` array or a pytree of arrays sharing the
             leading ``N`` axis (e.g. ``(X, y)``); ``batch`` passed to
             ``log_like`` has the same structure with leading axis ``B``.
@@ -176,11 +176,12 @@ def data_parallel_grad(
     separate devices along a mesh axis; every step each device draws
     ``batch_size / n_shards`` rows from its LOCAL shard, computes the
     partial minibatch-likelihood gradient for the (replicated) ``[C, D]``
-    chain batch, and the partials reduce with ONE ``psum`` over ICI —
-    the single deliberate hot-loop collective in the framework (the
-    sampling kernels themselves are zero-communication by construction,
-    ``runner.py``; here the data cannot be local, so the reduction is
-    irreducible and is one ``[C, D]``-sized all-reduce per step).
+    chain batch, and the partials reduce with ONE ``psum`` over the device
+    interconnect — the single deliberate hot-loop collective in the
+    framework (the sampling kernels themselves are zero-communication by
+    construction, ``runner.py``; here the data cannot be local, so the
+    reduction is irreducible and is one ``[C, D]``-sized all-reduce per
+    step).
 
     The estimator is unbiased for equal-size shards: uniform draws within
     each shard, ``batch_size/n_shards`` per shard, scaled by ``N/B``

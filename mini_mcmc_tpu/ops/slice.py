@@ -7,7 +7,7 @@ coordinates like the Gibbs kernel (/root/reference/src/gibbs.rs:95-99) so
 it drops in anywhere ``GibbsSampler`` does but needs only ``target.logp``
 — no full conditionals, no proposal tuning.
 
-TPU-native design: the reference framework parallelizes chains by threads;
+Batched design: the reference framework parallelizes chains by threads;
 here all chains advance in lockstep ``[n_chains, D]`` batches, and the two
 data-dependent phases of the algorithm become masked ``lax.while_loop``s
 over the whole batch (the same lanes-with-masks treatment that makes the

@@ -20,7 +20,7 @@ which is unbiased in expectation under multinomial resampling and
 near-unbiased (strictly lower variance) under the systematic scheme used
 here (Del Moral et al. 2006, sec. 3.2).
 
-TPU-native design: one ``lax.while_loop`` over stages, every stage a
+Batched design: one ``lax.while_loop`` over stages, every stage a
 fixed-shape lockstep program — a 40-iteration scalar bisection for the
 next beta (skipped via ``lax.cond`` when the full jump to 1 already
 passes), a systematic resample (a device-local gather), and batched MH

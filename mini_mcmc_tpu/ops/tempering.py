@@ -12,7 +12,7 @@ Hot replicas see a nearly-flat landscape and hop between modes; exchanges
 percolate those jumps down to the cold (beta = 1) replica, whose trajectory
 is the sample. The Rust reference has no tempering.
 
-TPU-native design: the temperature ladder is just another batch dimension —
+Batched design: the temperature ladder is just another batch dimension —
 all ``T * C`` replicas advance in one lockstep random-walk-Metropolis batch
 (with the per-temperature proposal scale ``sigma / sqrt(beta_t)``, matching
 the tempered density's width), and a swap sweep is a pair of ladder-axis
@@ -21,16 +21,13 @@ steps (the standard alternating scheme), decided for all chains at once. No
 per-replica loops, no gathers, no host round-trips; the whole step compiles
 into the collection scan like every other kernel.
 
-Two layout decisions carry the throughput (measured 16x together on v5e at
-8,192 chains x 8 temperatures, D = 1):
+Two layout decisions:
 
-- **Chains on lanes**: state is ``[T, D, C]``, NOT ``[T, C, D]`` — the VPU
-  tiles the two minor axes as (sublanes, lanes), and tempering's typical
-  targets are LOW-dimensional, so a ``[.., C, D]`` layout with D = 1-3
-  wastes up to 128x of every vector op on lane padding (the same reason
-  the fused Pallas kernels use the ``_dc`` chains-on-lanes target forms).
-  ``Target.logp_dc`` is used when available; otherwise ``batch_logp`` runs
-  on a transposed view.
+- **Chains minor**: state is ``[T, D, C]``, NOT ``[T, C, D]`` — tempering's
+  typical targets are LOW-dimensional, so with chains as the contiguous
+  minor axis every elementwise op walks C consecutive elements instead of
+  a minor axis of width D = 1-3. ``Target.logp_dc`` is used when
+  available; otherwise ``batch_logp`` runs on a transposed view.
 - **Swaps as shift + select, not gather**: accepted pairs are disjoint
   (alternating parity), so "apply all swaps" is two ladder-axis
   neighbor-shifts combined with elementwise `where` — XLA fuses it into
@@ -167,8 +164,7 @@ def _shift_down(x):
 
 def tempering_kernel(target: Target, betas: Sequence[float], *,
                      proposal_std=1.0, n_inner: int = 1,
-                     steps_per_call: int = 1, use_pallas=False,
-                     pallas_interpret: bool = False):
+                     steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for replica-exchange random-walk MH.
 
     ``init_fn(positions [C, D]) -> PTState`` replicates the cold-chain
@@ -177,13 +173,6 @@ def tempering_kernel(target: Target, betas: Sequence[float], *,
     alternating-parity swap sweep. ``proposal_std``: cold-chain random-walk
     scale (scalar or per-dimension ``[D]``); replica t proposes with
     ``proposal_std / sqrt(beta_t)``.
-
-    ``use_pallas="full"`` fuses everything (hardware-PRNG proposals, the
-    unrolled ladder update, swap sweeps, the acceptance EWMA) into one
-    on-chip kernel per K steps (``ops/pallas/tempering_full.py``):
-    requires ``target.logp_dc``; distribution-identical to the XLA path on
-    a different (hardware) PRNG stream; TPU-only; n_chains must be a
-    multiple of 1024.
     """
     betas = tuple(float(b) for b in betas)
     if len(betas) < 2:
@@ -202,32 +191,6 @@ def tempering_kernel(target: Target, betas: Sequence[float], *,
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     t_count = len(betas)
     beta_col = jnp.asarray(betas, jnp.float32)[:, None]  # [T, 1]
-
-    pallas_single = None
-    pallas_multistep = None
-    if use_pallas:
-        if use_pallas != "full":
-            raise ValueError(
-                "tempering has no trajectory to fuse separately — the only "
-                f'Pallas variant is use_pallas="full"; got {use_pallas!r}'
-            )
-        # logp_dc derives from the batch form when absent (models/base.py
-        # dc_forms): Target(logp=...) alone reaches the fused tier.
-        fused_logp_dc, _ = target.dc_forms()
-        from .pallas.tempering_full import make_pallas_pt_multistep
-
-        # K=1 driver: compile the history output out (the returned cold
-        # positions ARE the step's sample row; pallas outputs are opaque
-        # to XLA DCE).
-        pallas_single = make_pallas_pt_multistep(
-            fused_logp_dc, betas, proposal_std, 1, n_inner=n_inner,
-            interpret=pallas_interpret, with_history=False,
-        )
-        if steps_per_call > 1:
-            pallas_multistep = make_pallas_pt_multistep(
-                fused_logp_dc, betas, proposal_std, steps_per_call,
-                n_inner=n_inner, interpret=pallas_interpret,
-            )
 
     if target.logp_dc is not None:
         logp_l = jax.vmap(target.logp_dc)  # [T, D, C] -> [T, C]
@@ -260,14 +223,6 @@ def tempering_kernel(target: Target, betas: Sequence[float], *,
         )
 
     def step_fn(state: PTState, key: jax.Array) -> PTState:
-        if pallas_single is not None:
-            from .pallas.rng import key_to_seed
-
-            pos, lp, sa = pallas_single(
-                state.positions, state.raw_logp, state.swap_accept,
-                state.parity, key_to_seed(key),
-            )
-            return PTState(pos, lp, (state.parity + 1) % 2, sa)
         k_inner, k_swap = jax.random.split(key)
 
         # Per-replica proposal scale: sigma / sqrt(beta) — sigma may be a
@@ -326,41 +281,22 @@ def tempering_kernel(target: Target, betas: Sequence[float], *,
         )
 
     if steps_per_call > 1:
-        if pallas_multistep is not None:
-            from .pallas.rng import key_to_seed
+        # PT-specific scan block: record ONLY the cold rung (already in the
+        # user [C, D] layout) inside the scan body. The generic
+        # runner.make_scan_block_fn would stack the full [K, T, D, C]
+        # replica state and let the sampler slice rung 0 afterwards — a
+        # T-times transient HBM spike per block.
+        def block_fn(state: PTState, key: jax.Array):
+            def body(carry, sub):
+                carry = step_fn(carry, sub)
+                return carry, carry.positions[0].T
 
-            def block_fn(state: PTState, key: jax.Array):
-                pos, lp, sa, rows = pallas_multistep(
-                    state.positions, state.raw_logp, state.swap_accept,
-                    state.parity, key_to_seed(key),
-                )
-                new = PTState(
-                    pos, lp, (state.parity + steps_per_call) % 2, sa
-                )
-                return new, rows
+            return jax.lax.scan(
+                body, state, jax.random.split(key, steps_per_call)
+            )
 
-            # the kernel's history is the cold rung already in the user
-            # [K, C, D] layout — the sampler must not re-apply its
-            # internal->user positions_map to these rows.
-            block_fn.rows_mapped = True
-            step_fn.block_fn = block_fn
-        else:
-            # PT-specific scan block: record ONLY the cold rung (already
-            # in the user [C, D] layout) inside the scan body. The generic
-            # fallback (runner.make_scan_block_fn) would stack the full
-            # [K, T, D, C] replica state and let the sampler slice rung 0
-            # afterwards — a T-times transient HBM spike per block.
-            def block_fn(state: PTState, key: jax.Array):
-                def body(carry, sub):
-                    carry = step_fn(carry, sub)
-                    return carry, carry.positions[0].T
-
-                return jax.lax.scan(
-                    body, state, jax.random.split(key, steps_per_call)
-                )
-
-            block_fn.rows_mapped = True
-            step_fn.block_fn = block_fn
+        block_fn.rows_mapped = True
+        step_fn.block_fn = block_fn
         step_fn.block_size = steps_per_call
 
     return init_fn, step_fn

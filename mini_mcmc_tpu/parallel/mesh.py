@@ -2,14 +2,14 @@
 
 The reference's only parallelism axes are OS threads over chains (Rayon,
 /root/reference/src/core.rs:178-182) — it has no distributed backend at all
-(SURVEY.md section 2). The TPU-native scaling story is pure data parallelism
+(SURVEY.md section 2). The scaling story is pure data parallelism
 over the *chains* axis: lay chains out over a 1-D ``jax.sharding.Mesh`` and
 let XLA's SPMD partitioner run the identical compiled scan per shard. Chains
 never communicate during sampling; only the diagnostics reductions
 (between-chain variance for R-hat needs all chain means,
 /root/reference/src/stats.rs:155-178) cross chips, and those lower to
-``psum``-family collectives over ICI automatically when computed from
-sharded arrays.
+``psum``-family collectives over the device interconnect automatically when
+computed from sharded arrays.
 
 Model/tensor/pipeline/sequence parallelism are N/A for this workload (no
 model layers, no sequence axis — see SURVEY.md section 2); chains are the

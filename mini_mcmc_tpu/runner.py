@@ -1,6 +1,6 @@
 """Chain runner: lax.scan over vmapped step kernels.
 
-TPU-native replacement for the reference's ``ChainRunner`` layer
+Batched replacement for the reference's ``ChainRunner`` layer
 (/root/reference/src/core.rs:145-366). Where the reference fans chains out
 over Rayon threads and stacks per-chain ``Array2`` results, here every
 sampler step already advances all chains as one batched tensor, so "running
@@ -86,8 +86,8 @@ def make_simple_runner(
 
     Returns ``(final_state, sample, tracker)``. Samples are stacked
     ``[steps, C, D]`` inside the scan (contiguous per-step writes) and
-    transposed once at the end, which beats strided ``[C, steps, D]``
-    scatters on TPU. ``time_major=True`` skips that final transpose and
+    transposed once at the end, instead of strided ``[C, steps, D]``
+    scatters every step. ``time_major=True`` skips that final transpose and
     returns ``[steps, C, D]`` — the transpose materializes a second sample
     cube, so skipping it halves peak HBM at huge chain counts (consume
     with ``split_rhat_mean_ess(..., time_major=True)``).
@@ -114,9 +114,9 @@ def make_simple_runner(
 
 
 def make_scan_block_fn(step_fn: Callable, k: int) -> Callable:
-    """XLA fallback block kernel: K scanned ``step_fn`` steps per call,
-    returning ``(state, rows [K, C, D])`` — the same contract as the fused
-    Pallas multi-step kernels, so :func:`make_block_runner` accepts either.
+    """K-step block kernel: K scanned ``step_fn`` steps per call,
+    returning ``(state, rows [K, C, D])`` — the contract
+    :func:`make_block_runner` consumes.
     """
 
     def block_fn(state, key):
@@ -138,11 +138,10 @@ def make_block_runner(
     convention as :func:`make_simple_runner`).
 
     ``block_fn(state, key) -> (state, rows [K, C, D])`` advances K sampler
-    steps per call and returns every intermediate position (e.g. the fused
-    multi-step Pallas HMC kernel, ``ops/pallas/hmc_full.py``), so the
-    sample cube is identical in meaning to the per-step runner's —
-    recording is NOT thinned. ``n_collect`` and ``n_discard`` must be
-    multiples of ``block_size``.
+    steps per call and returns every intermediate position
+    (:func:`make_scan_block_fn`), so the sample cube is identical in
+    meaning to the per-step runner's — recording is NOT thinned.
+    ``n_collect`` and ``n_discard`` must be multiples of ``block_size``.
     """
     k = block_size
 

@@ -26,13 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from . import stats as stats_mod
-from .models.base import (
-    Conditional,
-    Proposal,
-    Target,
-    validate_dc_forms,
-    validate_separable,
-)
+from .models.base import Conditional, Proposal, Target
 from .ops.elliptical import elliptical_kernel
 from .ops.ensemble import ensemble_kernel
 from .ops.gibbs import gibbs_kernel
@@ -153,14 +147,14 @@ class _KernelSampler:
         )
         block_fn = getattr(step_fn, "block_fn", None)
         if block_fn is not None:
-            # K fused sampler steps per kernel call (ops/hmc.py
-            # steps_per_call); run() lengths must be multiples of K.
+            # K sampler steps per block call (ops/hmc.py steps_per_call);
+            # run() lengths must be multiples of K.
             from .runner import make_block_runner
 
-            # Fused block kernels may emit rows already in user [K, C, D]
-            # coordinates (block_fn.rows_mapped, e.g. the Pallas tempering
-            # kernel's cold-rung history) — only wrap the ones that return
-            # raw internal state rows.
+            # Block kernels may emit rows already in user [K, C, D]
+            # coordinates (block_fn.rows_mapped, e.g. the tempering cold-rung
+            # block) — only wrap the ones that return raw internal state
+            # rows.
             if (positions_map is not None
                     and not getattr(block_fn, "rows_mapped", False)):
                 raw_block = block_fn
@@ -271,38 +265,23 @@ class MetropolisHastings(_KernelSampler):
     """
 
     def __init__(self, target: Target, proposal: Proposal, initial_positions,
-                 seed: Optional[int] = None, use_pallas=False,
-                 steps_per_call: int = 1, pallas_interpret: bool = False,
-                 validate_dc: bool = True, transform=None):
+                 seed: Optional[int] = None, steps_per_call: int = 1,
+                 transform=None):
         self.target = target
         self.proposal = proposal
         self.transform = transform
         #: proposal scale factor vs. the originally constructed proposal
         #: (1.0 unless this sampler came from :meth:`tuned`)
         self.scale_factor = 1.0
-        self._ctor = dict(use_pallas=use_pallas,
-                          steps_per_call=steps_per_call,
-                          pallas_interpret=pallas_interpret,
-                          validate_dc=validate_dc, transform=transform)
+        self._ctor = dict(steps_per_call=steps_per_call, transform=transform)
         # transform: the target is a natural-coordinates density and the
         # PROPOSAL walks the unconstrained space (models/transforms.py);
         # initial positions / samples / .positions stay natural.
         kernel_target, positions_map, initial_positions = (
             _wrap_sampler_target(target, initial_positions, transform, None)
         )
-        if use_pallas and validate_dc:
-            # hand-written chains-on-lanes forms checked against the batch
-            # form once, at construction — a wrong logp_dc would silently
-            # sample the wrong posterior through every fused tier.
-            # need_grad=False: the fused MH kernel consumes only logp_dc
-            # VALUES, so the derived-gradient lane-coupling probe is
-            # irrelevant here
-            validate_dc_forms(kernel_target, initial_positions,
-                              need_grad=False)
         init_fn, step_fn = mh_kernel(kernel_target, proposal,
-                                     use_pallas=use_pallas,
-                                     steps_per_call=steps_per_call,
-                                     pallas_interpret=pallas_interpret)
+                                     steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, initial_positions, seed,
                          positions_map=positions_map)
 
@@ -343,8 +322,8 @@ class MetropolisHastings(_KernelSampler):
             1.0, target_accept,
         )
         # float(): the factor enters the new proposal's closures as a
-        # Python scalar so the fused Pallas path sees a compile-time
-        # constant, not a captured device array.
+        # Python scalar (a compile-time constant), not a captured device
+        # array.
         factor = float(factor)
         positions = state.positions  # kernel (unconstrained) coordinates
         if self.transform is not None and not self.transform.is_identity:
@@ -384,37 +363,21 @@ class HMC(_KernelSampler):
 
     def __init__(self, target: Target, initial_positions, step_size: float,
                  n_leapfrog: int, seed: Optional[int] = None,
-                 unroll: int = 8, use_pallas: bool = False,
-                 pallas_interpret: bool = False, jitter: float = 0.0,
-                 steps_per_call: int = 1, metric=None,
-                 validate_dc: bool = True, transform=None):
+                 unroll: int = 8, jitter: float = 0.0,
+                 steps_per_call: int = 1, metric=None, transform=None):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
         self.metric = metric
         self.transform = transform
         self._ctor = dict(step_size=step_size, n_leapfrog=n_leapfrog,
-                          unroll=unroll, use_pallas=use_pallas,
-                          pallas_interpret=pallas_interpret, jitter=jitter,
-                          steps_per_call=steps_per_call,
-                          validate_dc=validate_dc, transform=transform)
+                          unroll=unroll, jitter=jitter,
+                          steps_per_call=steps_per_call, transform=transform)
         kernel_target, positions_map, initial_positions = _wrap_sampler_target(
             target, initial_positions, transform, metric,
         )
-        if use_pallas and validate_dc:
-            # validate the target the fused tiers actually consume (the
-            # full transform+metric wrap) on kernel coordinates: a wrong
-            # user form OR a broken wrapper composition both surface here
-            if use_pallas == "separable":
-                # the large-D tier needs coordinate separability, not dc
-                # forms (it tiles batch_logp over coordinate chunks)
-                validate_separable(kernel_target, initial_positions)
-            else:
-                validate_dc_forms(kernel_target, initial_positions)
         init_fn, step_fn = hmc_kernel(kernel_target, step_size, n_leapfrog,
-                                      unroll=unroll, use_pallas=use_pallas,
-                                      pallas_interpret=pallas_interpret,
-                                      jitter=jitter,
+                                      unroll=unroll, jitter=jitter,
                                       steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, initial_positions, seed,
                          positions_map=positions_map)
@@ -537,10 +500,9 @@ class MALA(HMC):
     ALGEBRAICALLY IDENTICAL (substituting one leapfrog step into the
     Hamiltonian accept ratio reproduces the MALA ratio term for term, with
     the momentum Gaussian supplying the forward/reverse q densities), so
-    the cached-gradient state, the fused Pallas paths, ``metric=``
-    whitening, and checkpointing all carry over from ``ops/hmc.py``
-    unchanged. ``step_size`` IS the proposal std ``eps`` (i.e. the
-    classic MALA time step ``tau = eps^2 / 2``).
+    the cached-gradient state, ``metric=`` whitening, and checkpointing all
+    carry over from ``ops/hmc.py`` unchanged. ``step_size`` IS the proposal
+    std ``eps`` (i.e. the classic MALA time step ``tau = eps^2 / 2``).
 
     Use :meth:`tuned` to dual-average the step size toward the MALA
     optimum acceptance 0.574 (Roberts & Rosenthal 1998); prefer plain
@@ -561,15 +523,12 @@ class MALA(HMC):
     _default_target_accept = 0.574
 
     def __init__(self, target: Target, initial_positions, step_size: float,
-                 seed: Optional[int] = None, use_pallas: bool = False,
-                 pallas_interpret: bool = False, steps_per_call: int = 1,
-                 metric=None, validate_dc: bool = True, transform=None):
+                 seed: Optional[int] = None, steps_per_call: int = 1,
+                 metric=None, transform=None):
         super().__init__(target, initial_positions, step_size,
                          n_leapfrog=1, seed=seed, unroll=1,
-                         use_pallas=use_pallas,
-                         pallas_interpret=pallas_interpret,
                          steps_per_call=steps_per_call, metric=metric,
-                         validate_dc=validate_dc, transform=transform)
+                         transform=transform)
 
     @classmethod
     def _construct(cls, target, positions, metric, seed, ctor):
@@ -594,7 +553,7 @@ class ChEESHMC(_KernelSampler):
     alternative to NUTS built for exactly this framework's regime.
 
     Where NUTS adapts the trajectory per chain with dynamic trees (paying
-    for masked lanes and tree bookkeeping on TPU), ChEES keeps every chain
+    for masked lanes and tree bookkeeping in lockstep), ChEES keeps every chain
     on ONE shared jittered trajectory and adapts its LENGTH from a
     cross-chain criterion — more chains make the adaptation better, and
     after warmup the kernel is plain fixed-cost HMC with zero cross-chain
@@ -774,45 +733,29 @@ class ParallelTempering(_KernelSampler):
     hotter replicas scale it by ``1/sqrt(beta)``; ``n_inner``:
     within-temperature sweeps per swap sweep. ``swap_acceptance`` exposes
     the streaming per-pair EWMA (tune the ladder toward ~20-40%).
-
-    ``use_pallas="full"`` fuses whole PT steps (ladder sweeps + swap
-    sweeps, hardware-PRNG draws) into one on-chip kernel per
-    ``steps_per_call`` steps; requires ``target.logp_dc`` and a TPU (see
-    ``ops/pallas/tempering_full.py``).
     """
 
     def __init__(self, target: Target, initial_positions,
                  betas: Optional[tuple] = None, proposal_std=1.0,
                  n_inner: int = 1, seed: Optional[int] = None,
-                 steps_per_call: int = 1, use_pallas=False,
-                 pallas_interpret: bool = False, validate_dc: bool = True,
-                 transform=None):
+                 steps_per_call: int = 1, transform=None):
         self.target = target
         self.transform = transform
         if betas is None:
             betas = geometric_betas(8)
         self.betas = tuple(float(b) for b in betas)
         self._ctor = dict(proposal_std=proposal_std, n_inner=n_inner,
-                          steps_per_call=steps_per_call,
-                          use_pallas=use_pallas,
-                          pallas_interpret=pallas_interpret,
-                          validate_dc=validate_dc, transform=transform)
+                          steps_per_call=steps_per_call, transform=transform)
         # transform: replicas walk the unconstrained space (the tempered
         # densities are beta * wrapped logp); the cold cube stays natural
         kernel_target, tf_map, initial_positions = _wrap_sampler_target(
             target, initial_positions, transform, None,
         )
-        if use_pallas and validate_dc:
-            # need_grad=False: the fused tempering kernel reads only
-            # logp_dc values (random-walk inner moves + swap ratios)
-            validate_dc_forms(kernel_target, initial_positions,
-                              need_grad=False)
         n_cold = jnp.shape(jnp.asarray(initial_positions))[0]
         self._n_cold = int(n_cold)
         init_fn, step_fn = tempering_kernel(
             kernel_target, self.betas, proposal_std=proposal_std,
             n_inner=n_inner, steps_per_call=steps_per_call,
-            use_pallas=use_pallas, pallas_interpret=pallas_interpret,
         )
 
         # positions_map extracts the cold ladder rung (rung 0) from the
@@ -886,8 +829,8 @@ class EllipticalSliceSampler(_KernelSampler):
 
     This is the workhorse for latent Gaussian models (GP regression/
     classification with non-Gaussian likelihoods), where ``D`` is the
-    number of latent function values and the prior Cholesky matmul rides
-    the MXU.
+    number of latent function values and the prior Cholesky draw is one
+    batched matmul.
 
     Example:
         >>> import jax.numpy as jnp
@@ -972,23 +915,15 @@ class GibbsSampler(_KernelSampler):
     """Batched Gibbs sampler: one step = one full coordinate sweep
     (/root/reference/src/gibbs.rs:95-99).
 
-    ``use_pallas="full"`` fuses the whole sweep (hardware-PRNG conditional
-    draws) into one on-chip Pallas kernel; requires
-    ``conditional.sample_dc`` (TPU-only, see ``ops/pallas/gibbs_full.py``).
-    ``steps_per_call`` > 1 fuses K sweeps per kernel call (run lengths must
-    then be multiples of K), amortizing the per-step fixed cost like the
-    MH/HMC block kernels.
+    ``steps_per_call`` > 1 scans K sweeps per block call (run lengths must
+    then be multiples of K), like the MH/HMC block kernels.
     """
 
     def __init__(self, conditional: Conditional, initial_positions,
-                 seed: Optional[int] = None, use_pallas=False,
-                 steps_per_call: int = 1, pallas_interpret: bool = False):
+                 seed: Optional[int] = None, steps_per_call: int = 1):
         self.conditional = conditional
-        n_dim = jnp.shape(jnp.asarray(initial_positions))[-1]
-        init_fn, step_fn = gibbs_kernel(conditional, n_dim=n_dim,
-                                        use_pallas=use_pallas,
-                                        steps_per_call=steps_per_call,
-                                        pallas_interpret=pallas_interpret)
+        init_fn, step_fn = gibbs_kernel(conditional,
+                                        steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, initial_positions, seed)
 
 
@@ -1001,7 +936,7 @@ class SGLD(_KernelSampler):
 
     ``grad_fn(positions [C, D], key) -> [C, D]`` supplies the stochastic
     gradient — build it with :func:`~mini_mcmc_tpu.minibatch_grad` (data
-    subsampling, MXU-batched likelihood) or
+    subsampling, matmul-batched likelihood) or
     :func:`~mini_mcmc_tpu.ops.sgmcmc.target_grad` (full-batch unadjusted
     Langevin). ``step_size`` is a constant or an on-device schedule such as
     :func:`~mini_mcmc_tpu.polynomial_decay`. There is no accept/reject:

@@ -83,7 +83,7 @@ def stream_run(sampler, n_total: int, chunk_size: int, on_chunk=None,
     if chunk_size % block != 0 or n_discard % block != 0:
         raise ValueError(
             f"chunk_size={chunk_size} and n_discard={n_discard} must be "
-            f"multiples of the sampler's fused block size {block}"
+            f"multiples of the sampler's block size {block}"
         )
     # NUTS: run its prepare pass (step-size search + adaptation schedule)
     # once up front, snapshot divergences so last_run_divergences covers

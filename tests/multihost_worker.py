@@ -1,9 +1,9 @@
 """Worker process for the 2-process multihost test (test_parallel.py).
 
 Each process owns ONE virtual CPU device; together they form a 2-device
-global chains mesh spanning processes — the DCN analog of a multi-host TPU
-slice (parallel/multihost.py docstring). Exercises the full claimed
-multi-host path: ``multihost.initialize`` (jax.distributed + gloo CPU
+global chains mesh spanning processes — the analog of a multi-host
+accelerator cluster (parallel/multihost.py docstring). Exercises the full
+claimed multi-host path: ``multihost.initialize`` (jax.distributed + gloo CPU
 collectives), ``global_chain_mesh``, ``host_local_state`` (each process
 materializes only its own chain rows), a sharded MH run, and a cross-
 process diagnostics reduction.

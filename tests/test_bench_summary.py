@@ -25,7 +25,7 @@ def _synthetic_result(n_stages: int) -> dict:
     """A result dict shaped like main()'s, with n_stages gated stages
     (incl. nested sub-stages and one failure) and bulky non-stage keys."""
     detail: dict = {
-        "backend": "tpu",
+        "backend": "gpu",
         "config": "x" * 500,  # bulky non-stage metadata must be dropped
         "quality_gate": "passed",
         "roofline": {"note": "y" * 400},  # no quality_gate -> skipped
@@ -97,7 +97,7 @@ def test_compact_summary_failed_stage_has_no_headline():
 
 def _ratcheted_result():
     """A result whose floored stages all clear their _PERF_FLOORS."""
-    detail: dict = {"backend": "tpu", "quality_gate": "passed"}
+    detail: dict = {"backend": "gpu", "quality_gate": "passed"}
     for path, floors in bench._PERF_FLOORS.items():
         if path == "hmc_flagship":
             detail["ess_per_sec"] = floors["rate"] * 4
@@ -141,7 +141,7 @@ def test_perf_ratchet_passes_at_measured_rates():
 
 
 def test_perf_ratchet_fails_throttled_stage():
-    """VERDICT r4 'done' criterion: artificially throttling a stage fails
+    """Artificially throttling a stage fails
     its gate even though every quality gate still reads 'passed'."""
     result = _ratcheted_result()
     floor = bench._PERF_FLOORS["gibbs_mixture_65k"]["rate"]
@@ -155,7 +155,7 @@ def test_perf_ratchet_fails_throttled_stage():
 def test_perf_ratchet_fails_efficiency_collapse():
     # halved sampling efficiency with unchanged wall time: the rate can
     # stay above its floor while ess_mean collapses — the ess_mean floor
-    # must catch it (VERDICT r4 weak #5)
+    # must catch it
     result = _ratcheted_result()
     result["detail"]["nuts"]["ess_mean"] = (
         bench._PERF_FLOORS["nuts"]["ess_mean"] / 10)

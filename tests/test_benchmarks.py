@@ -36,9 +36,10 @@ from mini_mcmc_tpu.models import (
     isotropic_gaussian_proposal,
     rosenbrock2d,
 )
-from mini_mcmc_tpu.utils.profiling import sync as _sync
 
 pytestmark = pytest.mark.slow
+
+_sync = jax.block_until_ready
 
 
 def test_mh_throughput_80m_samples():

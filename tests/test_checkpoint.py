@@ -125,7 +125,7 @@ def test_checkpoint_restores_across_mesh_sizes():
     # Mesh portability: a state saved from an 8-device sharded run restores
     # onto the default single device, and a single-device checkpoint
     # restores sharded over the 8-device mesh — continuations match the
-    # unsharded continuation (VERDICT r1 next-step 7).
+    # unsharded continuation.
     from mini_mcmc_tpu.parallel import chain_mesh, shard_sampler_state
 
     target = rosenbrock_nd()

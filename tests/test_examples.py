@@ -50,7 +50,7 @@ def test_example(name):
 
 def test_eight_schools_dc_forms_match_autodiff():
     """The hand-written chains-on-lanes logp_dc/grad_dc of the 8-schools
-    non-centered target (the fused-Pallas enabler) must agree with
+    non-centered target must agree with
     logp_batch and its autodiff gradient."""
     import importlib.util
     import os

@@ -4,7 +4,7 @@ The reference is generic over ``T: Float`` (f32/f64 backends,
 /root/reference/src/hmc.rs:38, /root/reference/src/distributions.rs:65-134);
 here the kernels are dtype-generic over the initial positions' dtype.
 ``jax_enable_x64`` is process-global, so the check runs in a subprocess
-(the main suite stays x32, the TPU-native default).
+(the main suite stays x32, the accelerator default).
 """
 
 import os

@@ -55,7 +55,7 @@ def test_gibbs_determinism():
 
 
 def test_gibbs_block_fn_contract():
-    # the XLA K-sweep block (steps_per_call>1 without Pallas) must equal K
+    # the XLA K-sweep block (steps_per_call>1) must equal K
     # applications of step_fn on the block key's K sub-keys, recording
     # every intermediate state (nothing thinned)
     import jax
@@ -63,7 +63,7 @@ def test_gibbs_block_fn_contract():
     from mini_mcmc_tpu.ops.gibbs import gibbs_kernel
 
     cond = gaussian_mixture_conditional(-2.0, 1.0, 3.0, 1.5, 0.5)
-    init_fn, step_fn = gibbs_kernel(cond, n_dim=2, steps_per_call=4)
+    init_fn, step_fn = gibbs_kernel(cond, steps_per_call=4)
     state = init_fn(jnp.zeros((6, 2)))
     key = jax.random.PRNGKey(3)
     out_state, rows = step_fn.block_fn(state, key)
@@ -95,34 +95,6 @@ def test_gibbs_steps_per_call_sampler_statistics():
     )
     assert abs(xs.mean() - true_mean) < abs(true_mean) / 10.0, xs.mean()
     assert abs(xs.var() - true_var) < true_var / 10.0, xs.var()
-
-
-def test_gibbs_use_pallas_validates_requirements():
-    import pytest
-
-    from mini_mcmc_tpu.models.base import Conditional
-
-    no_dc = Conditional(sample=lambda key, i, s: s[0])
-    with pytest.raises(ValueError, match="sample_dc"):
-        GibbsSampler(no_dc, jnp.zeros((1024, 2)), use_pallas="full")
-    cond = gaussian_mixture_conditional(-2.0, 1.0, 3.0, 1.5, 0.5)
-    with pytest.raises(ValueError, match="full"):
-        GibbsSampler(cond, jnp.zeros((1024, 2)), use_pallas=True)
-
-
-def test_gibbs_full_kernel_requires_tpu():
-    # Same hardware-PRNG limitation as the fused MH/HMC kernels: on CPU
-    # the fused Gibbs path must fail loudly, never silently fall back.
-    import jax
-    import pytest
-
-    if jax.default_backend() == "tpu":
-        pytest.skip("runs for real on TPU (tests/test_tpu_parity.py)")
-    cond = gaussian_mixture_conditional(-2.0, 1.0, 3.0, 1.5, 0.5)
-    sampler = GibbsSampler(cond, jnp.zeros((1024, 2)),
-                           use_pallas="full", pallas_interpret=True).seed(0)
-    with pytest.raises(Exception):
-        jax.block_until_ready(sampler.run(2, 0))
 
 
 def test_gibbs_sequential_sweep_uses_fresh_values():

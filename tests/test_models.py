@@ -234,10 +234,9 @@ def test_neal_funnel_logp_and_grad():
 
 
 def test_poisson_target_with_traced_lam_drops_dc_form():
-    # built under jit/vmap over hyperparameters, the Pallas coefficients
+    # built under jit/vmap over hyperparameters, the dc-form coefficients
     # can't be baked in: construction must still succeed with logp_dc=None
-    # (use_pallas then raises its clean requirement error), and the XLA
-    # path must work
+    # (Target.dc_forms then derives it), and the batch path must work
     import jax
 
     from mini_mcmc_tpu.models import poisson_target
@@ -251,3 +250,217 @@ def test_poisson_target_with_traced_lam_drops_dc_form():
     ref = poisson_target(4.0).logp(jnp.array([3], jnp.int32))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-6)
     assert poisson_target(4.0).logp_dc is not None
+
+
+# -- chains-on-lanes (dc) forms ------------------------------------------------
+
+
+def test_dc_forms_match_batch_forms():
+    target = rosenbrock_nd()
+    x = jax.random.normal(jax.random.PRNGKey(0), (16, 4), jnp.float32)
+    np.testing.assert_allclose(
+        np.asarray(target.logp_dc(x.T)),
+        np.asarray(target.logp_batch(x)),
+        rtol=1e-6,
+    )
+    np.testing.assert_allclose(
+        np.asarray(target.grad_dc(x.T).T),
+        np.asarray(jax.vmap(target.grad)(x)),
+        rtol=1e-6,
+    )
+
+
+def test_derive_grad_dc_matches_handwritten():
+    """AD-derived chains-on-lanes gradient == hand-written, on both the
+    [D, C] layout and a [D, C1, C2] multi-axis lane layout."""
+    import dataclasses
+
+    from mini_mcmc_tpu.models.base import derive_grad_dc
+
+    target = rosenbrock_nd()
+    x = jax.random.normal(jax.random.PRNGKey(1), (16, 4), jnp.float32)
+    derived = derive_grad_dc(target.logp_dc)
+    np.testing.assert_allclose(np.asarray(derived(x.T)),
+                               np.asarray(target.grad_dc(x.T)),
+                               rtol=1e-5, atol=1e-6)
+    p3 = x.T.reshape(4, 8, 2)
+    np.testing.assert_allclose(np.asarray(derived(p3)),
+                               np.asarray(target.grad_dc(p3)),
+                               rtol=1e-5, atol=1e-6)
+
+    # dc_forms(): pass-through when grad_dc exists, derivation when not.
+    lp, g = target.dc_forms()
+    assert g is target.grad_dc
+    stripped = dataclasses.replace(target, grad_dc=None)
+    lp2, g2 = stripped.dc_forms()
+    assert lp2 is target.logp_dc and g2 is not None
+    np.testing.assert_allclose(np.asarray(g2(x.T)),
+                               np.asarray(target.grad_dc(x.T)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_derive_logp_dc_lane_shapes():
+    """derive_logp_dc handles both the [D, C] layout and a multi-axis
+    [D, C1, C2] lane layout (moveaxis/reshape round-trip)."""
+    from mini_mcmc_tpu.models.base import derive_logp_dc
+
+    target = rosenbrock_nd()
+    x = jax.random.normal(jax.random.PRNGKey(2), (16, 4), jnp.float32)
+    derived = derive_logp_dc(target.batch_logp)
+    np.testing.assert_allclose(np.asarray(derived(x.T)),
+                               np.asarray(target.batch_logp(x)),
+                               rtol=1e-6)
+    p3 = x.T.reshape(4, 8, 2)
+    np.testing.assert_allclose(np.asarray(derived(p3)),
+                               np.asarray(target.logp_dc(p3)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_neal_funnel_dc_form():
+    """The funnel's dc form matches its batch form, and the gradient
+    derived from it matches the analytic one."""
+    from mini_mcmc_tpu.models import neal_funnel
+
+    t = neal_funnel()
+    x = jax.random.normal(jax.random.PRNGKey(3), (16, 5), jnp.float32)
+    np.testing.assert_allclose(np.asarray(t.logp_dc(x.T)),
+                               np.asarray(t.logp_batch(x)),
+                               rtol=1e-5, atol=1e-5)
+    _, g_derived = t.dc_forms()
+    np.testing.assert_allclose(np.asarray(g_derived(x.T).T),
+                               np.asarray(jax.vmap(t.grad)(x)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_eight_schools_example_dc_forms_validate():
+    """The hierarchical D=10 example's hand-written dc forms agree with its
+    batch forms (value and gradient) on random positions."""
+    import importlib.util
+    import os
+
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    spec = importlib.util.spec_from_file_location(
+        "es8", os.path.join(os.path.dirname(__file__), "..",
+                            "examples", "eight_schools_nuts.py"))
+    es8 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(es8)
+    target = es8.make_noncentered_target()
+    assert target.logp_dc is not None
+    pos = 0.5 * jax.random.normal(jax.random.PRNGKey(5), (64, 10),
+                                  jnp.float32)
+    validate_dc_forms(target, pos)
+
+
+def _gaussian_with_dc():
+    return gaussian2d([0.0, 0.0], [[2.0, 0.5], [0.5, 1.0]])
+
+
+def _lane_coupled(logp_dc):
+    """A logp_dc whose VALUES are right but which couples lanes through a
+    reduction: the ratio is 1 numerically, but the VJP picks up a
+    sum-over-lanes term, corrupting the AD-derived gradient."""
+
+    def sneaky(p, _f=logp_dc):
+        lp = _f(p)
+        total = jnp.sum(lp)
+        return lp * (total / jax.lax.stop_gradient(total))
+
+    return sneaky
+
+
+def test_corrupted_logp_dc_fails_construction():
+    """A hand-written logp_dc that disagrees with logp (a dropped-term
+    scale: the class of bug that still 'samples something plausible')
+    is rejected by validate_dc_forms; the good form passes."""
+    import dataclasses
+
+    import pytest
+
+    from mini_mcmc_tpu import init_det
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    good = _gaussian_with_dc()
+    bad = dataclasses.replace(
+        good, logp_dc=lambda p, _f=good.logp_dc: 0.9 * _f(p)
+    )
+    pos = init_det(16, 2)
+    with pytest.raises(ValueError, match="disagrees"):
+        validate_dc_forms(bad, pos)
+    with pytest.raises(ValueError, match="disagrees"):
+        validate_dc_forms(bad, pos, need_grad=False)
+    validate_dc_forms(good, pos)
+
+
+def test_corrupted_grad_dc_fails_construction():
+    import dataclasses
+
+    import pytest
+
+    from mini_mcmc_tpu import init_det
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    target = rosenbrock_nd()
+    bad = dataclasses.replace(
+        target, grad_dc=lambda p, _f=target.grad_dc: -_f(p)  # wrong sign
+    )
+    with pytest.raises(ValueError, match="grad_dc"):
+        validate_dc_forms(bad, init_det(8, 3))
+
+
+def test_cross_lane_reduction_logp_dc_caught_by_grad_probe():
+    """A value-correct logp_dc that couples lanes corrupts the AD-derived
+    gradient silently; the validator catches it via the gradient check."""
+    import dataclasses
+
+    import pytest
+
+    from mini_mcmc_tpu import init_det
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    target = rosenbrock_nd()
+    bad = dataclasses.replace(target, logp_dc=_lane_coupled(target.logp_dc),
+                              grad_dc=None)
+    with pytest.raises(ValueError, match="grad_dc"):
+        validate_dc_forms(bad, init_det(8, 3))
+
+
+def test_handwritten_grad_dc_without_logp_dc_checked():
+    """A corrupted hand-written grad_dc supplied WITHOUT a logp_dc is
+    still rejected: dc_forms() hands the hand-written gradient on even
+    when logp_dc derives, so the validator cannot early-return on
+    logp_dc-is-None alone."""
+    import dataclasses
+
+    import pytest
+
+    from mini_mcmc_tpu import init_det
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    target = rosenbrock_nd()
+    bad = dataclasses.replace(
+        target, logp_dc=None,
+        grad_dc=lambda p, _f=target.grad_dc: -_f(p),  # wrong sign
+    )
+    with pytest.raises(ValueError, match="grad_dc"):
+        validate_dc_forms(bad, init_det(8, 3))
+
+
+def test_gradient_free_fused_samplers_skip_derived_grad_probe():
+    """need_grad=False (value-only consumers) skips the derived-gradient
+    probe: a value-correct, lane-coupled logp_dc passes there and is
+    still rejected when the gradient is needed."""
+    import dataclasses
+
+    import pytest
+
+    from mini_mcmc_tpu import init_det
+    from mini_mcmc_tpu.models.base import validate_dc_forms
+
+    target = _gaussian_with_dc()
+    bad = dataclasses.replace(target, logp_dc=_lane_coupled(target.logp_dc),
+                              grad_dc=None)
+    pos = init_det(16, 2)
+    validate_dc_forms(bad, pos, need_grad=False)
+    with pytest.raises(ValueError, match="grad_dc"):
+        validate_dc_forms(bad, pos)

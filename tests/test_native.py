@@ -129,7 +129,7 @@ def _assert_diag_close(cube, rtol_rhat=1e-4, rtol_ess=2e-3):
 def test_native_rank_normalized_autocorrelated():
     # AR(1) chains: real autocorrelation through BOTH the rank transform
     # and the Geyer sum; n' = 200 exercises the FFT branch of the XLA
-    # pipeline against the C++ brute force (VERDICT r3 missing #4: the
+    # pipeline against the C++ brute force (the
     # rank-normalized path previously had only property tests — a wrong
     # Blom offset or folding point would have survived them).
     rng = np.random.default_rng(0)

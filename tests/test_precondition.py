@@ -202,19 +202,6 @@ def test_metric_works_on_rosenbrock_diag():
     assert abs(x0.var() - 0.22937) < 0.08, x0.var()
 
 
-def test_metric_pallas_trajectory_matches_xla():
-    # the wrapped dc forms (unrolled scalar maps) drive the Pallas
-    # trajectory kernel; it must reproduce the XLA leapfrog on the
-    # whitened target draw-for-draw (interpret mode, the usual CPU gate)
-    target = diffable_gaussian2d([0.0, 1.0], COV)
-    init = init_det(8, 2)
-    a = HMC(target, init, 0.9, 8, metric=_dense_pre()).seed(1).run(50, 10)
-    b = HMC(target, init, 0.9, 8, metric=_dense_pre(), use_pallas=True,
-            pallas_interpret=True).seed(1).run(50, 10)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5,
-                               atol=2e-6)
-
-
 def test_preconditioner_validates_construction():
     with pytest.raises(ValueError, match="kind"):
         Preconditioner(kind="Diag", scale=jnp.ones(2))

@@ -123,7 +123,7 @@ def test_run_progress_time_major_matches_chain_major():
 
 def test_run_progress_drives_block_runner_with_tail():
     # a steps-per-call sampler's progress path must drive the BLOCK runner
-    # for the K-aligned bulk (VERDICT r2 weak #2 — headless and monitored
+    # for the K-aligned bulk (headless and monitored
     # runs share the same kernel) and the per-step runner for the sub-K
     # tail; totals that are NOT K-multiples must still work exactly
     mh = _mh(seed=2, steps_per_call=4)

@@ -260,7 +260,7 @@ def _numpy_ess_no_split(sample):
 
 
 def test_ess_from_chainstats_direct():
-    """ess_from_chainstats had no test of its own (VERDICT r3 weak #3):
+    """ess_from_chainstats had no test of its own:
     pin its no-splitting semantics against an independent NumPy
     re-derivation, and against split_rhat_mean_ess through the exact
     identity ess_split(cube) == ess_from_chainstats(pre-split cube)."""

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mini_mcmc_tpu import HMC, NUTS, init_det, init_with_seed
+from mini_mcmc_tpu import HMC, NUTS, ParallelTempering, init_det, init_with_seed
 from mini_mcmc_tpu.models import (
     CoordinateTransform,
     interval,
@@ -165,9 +165,9 @@ def test_transformed_noncentered_eight_schools_recovers_exact_moments():
 
 def test_wrapped_dc_forms_validate_and_run_fused():
     """A constrained target WITH hand-written dc forms keeps them through
-    the transform (per-row composition) — checked by the same
-    construction-time validator the samplers run, then driven through the
-    fused trajectory kernel in interpreter mode."""
+    the transform (per-row composition) — checked by the dc-form
+    validator, then driven through parallel tempering, whose replica
+    sweep evaluates the wrapped ``logp_dc``."""
     # x0 > 0 scale, x1 unconstrained location: logp = -x0 - (x1/x0)^2 / 2
     def logp_batch(xs):
         return -xs[:, 0] - 0.5 * (xs[:, 1] / xs[:, 0]) ** 2
@@ -182,12 +182,10 @@ def test_wrapped_dc_forms_validate_and_run_fused():
     pos = init_det(16, 2)
     validate_dc_forms(wrapped, pos)  # wrapped dc form == wrapped batch form
 
-    fused = HMC(wrapped, pos, 0.05, 3, use_pallas=True,
-                pallas_interpret=True).seed(5).run(10, 5)
-    ref = HMC(wrapped, pos, 0.05, 3).seed(5).run(10, 5)
-    np.testing.assert_allclose(np.asarray(fused), np.asarray(ref),
-                               rtol=1e-4, atol=1e-5)
-    assert np.all(np.asarray(tf.to_x(fused))[:, :, 0] > 0)
+    pt = ParallelTempering(wrapped, pos, betas=(1.0, 0.5),
+                           proposal_std=0.3).seed(5).run(10, 5)
+    assert np.all(np.isfinite(np.asarray(pt)))
+    assert np.all(np.asarray(tf.to_x(pt))[:, :, 0] > 0)
 
 
 def test_grad_dc_composition_through_transform():

@@ -24,23 +24,6 @@ def test_step_timer_blocks_and_times():
     assert secs >= 0.0
 
 
-def test_lgamma_lanczos_accuracy():
-    # the Mosaic-compatible Lanczos log-gamma used by the discrete targets'
-    # fused-Pallas forms (utils/mathx): <= 3e-4 absolute on the small-z
-    # range where lgamma crosses zero (the realistic Poisson/Binomial k
-    # range), few-fp32-ulp relative everywhere else
-    import jax
-    from mini_mcmc_tpu.utils.mathx import lgamma_positive
-
-    z = jnp.arange(1.0, 5000.0, 0.37, jnp.float32)
-    ours = lgamma_positive(z)
-    exact = jax.lax.lgamma(z)
-    abs_err = jnp.abs(ours - exact)
-    assert float(jnp.max(jnp.where(z <= 200.0, abs_err, 0.0))) < 3e-4
-    rel = abs_err / jnp.maximum(jnp.abs(exact), 1.0)
-    assert float(jnp.max(jnp.where(z > 20.0, rel, 0.0))) < 1e-5
-
-
 def test_chain_keys_independent_and_deterministic():
     import jax
     import jax.numpy as jnp
